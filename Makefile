@@ -4,7 +4,7 @@
 CSRC := csrc
 SO   := $(CSRC)/libfftconv_planner.so
 
-.PHONY: all native test test-tpu bench demo clean
+.PHONY: all native test test-gpu smoke bench demo clean
 
 all: native
 
@@ -14,11 +14,15 @@ $(SO): $(CSRC)/planner.cpp
 	g++ -O2 -shared -fPIC -std=c++17 -o $@ $<
 
 test:
-	python -m pytest tests/ -q
+	JAX_PLATFORMS=cpu python -m pytest tests/ -q
 
-# run the suite on the attached TPU instead of the simulated CPU mesh
-test-tpu:
-	FFTCONV_TEST_TPU=1 python -m pytest tests/ -q
+# the tests that need the card (run on a machine with an NVIDIA GPU)
+test-gpu:
+	python -m pytest tests/ -q -m gpu
+
+# full-size main path on one GPU against the float64 reference
+smoke:
+	python chip_smoke.py
 
 bench:
 	python bench.py

@@ -1,4 +1,4 @@
-// Native planner — the TPU-native equivalent of the reference's host
+// Native planner — the equivalent of the reference's host
 // utility layer (src/cudaConvFFTData.h: iDivUp/iAlignUp grid math,
 // computeFFTsize/computeFFTsize16 FFT-size policies) plus the execution
 // planning the streams variant hard-codes (src/cudaConvFFTDataStreams.cu:
@@ -52,13 +52,8 @@ int64_t ffc_next_fast_len(int64_t n) {
   return n;
 }
 
-// smallest 5-smooth multiple of `align` >= n (`align` must be 5-smooth).
-int64_t ffc_next_fast_len_aligned(int64_t n, int64_t align) {
-  return align * ffc_next_fast_len(ffc_ceil_div(n, align));
-}
-
 // FFT-size policy dispatch; must match utils/fft_size.py:compute_fft_size.
-// policy: 0=multiple16, 1=pow2, 2=fast, 3=tpu.
+// policy: 0=multiple16, 1=pow2, 2=fast.
 void ffc_compute_fft_size(int64_t data_h, int64_t data_w, int64_t max_kh,
                           int64_t max_kw, int32_t policy, int64_t* out_h,
                           int64_t* out_w) {
@@ -73,13 +68,9 @@ void ffc_compute_fft_size(int64_t data_h, int64_t data_w, int64_t max_kh,
       *out_h = ffc_next_pow2(need_h);
       *out_w = ffc_next_pow2(need_w);
       return;
-    case 2:
+    default:
       *out_h = ffc_next_fast_len(need_h);
       *out_w = ffc_next_fast_len(need_w);
-      return;
-    default:  // tpu: sublane-align H (8 for fp32), lane-align W (128)
-      *out_h = ffc_next_fast_len_aligned(need_h, 8);
-      *out_w = ffc_next_fast_len_aligned(need_w, 128);
       return;
   }
 }
@@ -90,7 +81,7 @@ void ffc_compute_fft_size(int64_t data_h, int64_t data_w, int64_t max_kh,
 // budget — the decision src/cudaConvFFTDataStreams.cu bakes in as
 // "2 streams x 1 kernel each".
 //
-// Inputs: bank size n, feature dim f, fft dims, batch b, HBM budget bytes,
+// Inputs: bank size n, feature dim f, fft dims, batch b, memory budget bytes,
 // spectra store width in bytes (4 = f32 tier, 2 = the bf16 serving tier —
 // data/bank/product spectra all halve; output maps stay f32).
 // Outputs: chunk size (>=1) and estimated peak working-set bytes.
@@ -98,13 +89,9 @@ void ffc_plan_bank(int64_t n, int64_t f, int64_t fft_h, int64_t fft_w,
                    int64_t b, int64_t hbm_budget_bytes, int64_t store_bytes,
                    int64_t* out_chunk, int64_t* out_peak_bytes) {
   const int64_t wc = fft_w / 2 + 1;
-  // PADDED bytes: TPU HBM stores f32 arrays in (8, 128) tiles, so the
-  // trailing (h, wc) dims round up — a (540, 271) spectrum plane occupies
-  // (544, 384), 1.43x its nominal bytes (measured: the nominal model
-  // OOM'd a 9.3 GB-nominal / 13.3 GB-padded bank at every chunk size).
-  const int64_t h_pad = ffc_align_up(fft_h, 8);
-  const int64_t spec = h_pad * ffc_align_up(wc, 128) * 2 * store_bytes;
-  const int64_t map = h_pad * ffc_align_up(fft_w, 128) * 4;
+  // Nominal bytes: device arrays take their element count times width.
+  const int64_t spec = fft_h * wc * 2 * store_bytes;
+  const int64_t map = fft_h * fft_w * 4;
   // Fixed: data spectra (b*f planes), input data, the RESIDENT bank spectra
   // (n*f planes), and the full output maps (b*n) — all live for the whole
   // call regardless of chunking.
@@ -112,27 +99,22 @@ void ffc_plan_bank(int64_t n, int64_t f, int64_t fft_h, int64_t fft_w,
       b * f * spec + b * f * fft_h * fft_w * 4 + n * f * spec + b * n * map;
   // UNCHUNKED working set per kernel: products (b planes) + inverse scratch
   // (~2 maps); x2 for producer/consumer overlap. For f > 1 keep a
-  // bank/16 slack for MAC fusion failures: the F-contraction einsum was
-  // once modeled as a full bank-sized relayout copy, but the whole-bank
-  // MAC at the F=31, N=224, 11.6 GB-padded-bank config measured RUNNING
-  // unchunked within 2.4 GB of real slack (perf/diag_dpm.py
-  // mac256_einsum) — the full-bank allowance forced a chunked plan that
-  // was 6-12x slower than the unchunked pass it prohibited.
+  // bank/16 slack for the F-contraction's operand relayouts (a full
+  // bank-sized allowance would force chunked plans, and a chunked pass
+  // pays a bank-slice copy per chunk).
   const int64_t per_unchunked = 2 * (b * spec + 2 * b * map);
   const int64_t unchunked_extra = (f > 1) ? (n * f * spec) / 16 : 0;
   int64_t budget = hbm_budget_bytes - fixed;
   if (budget >= n * per_unchunked + unchunked_extra) {
-    // Whole bank in one pass — measured to be both the fastest and the
-    // memory-honest choice (a chunked lax.map pays a bank-slice COPY per
-    // chunk; with chunk_size 1 that was a measured 30x slowdown).
+    // Whole bank in one pass (a chunked lax.map pays a bank-slice COPY per
+    // chunk).
     *out_chunk = n;
     *out_peak_bytes = fixed + n * per_unchunked + unchunked_extra;
     return;
   }
   // Chunked: each chunk's working set adds a bank-slice copy PLUS its
   // F-contraction relayout (f planes each, f > 1) on top of products/maps;
-  // x2 for double buffering. (A chunk of 42 with the single-copy model
-  // OOM'd on hardware; the relayout term restores the safety margin.)
+  // x2 for double buffering.
   const int64_t slice_copies = (f > 1) ? 2 * f * spec : f * spec;
   const int64_t per_chunked = 2 * (slice_copies + b * spec + b * (3 * map));
   if (budget < per_chunked) budget = per_chunked;
@@ -144,63 +126,21 @@ void ffc_plan_bank(int64_t n, int64_t f, int64_t fft_h, int64_t fft_w,
 }
 
 // ---------------------------------------------------------------------------
-// Overlap-save block geometry (analytic planner) + fused-kernel VMEM model —
-// native mirrors of ops/tiled.py:choose_block_fft's analytic fallback and
-// ops/block_conv.py:block_conv_vmem_bytes/_fits_vmem. The Python side
-// remains the definition of record and additionally overlays the MEASURED
-// geometry table (runtime/autotune.py) before falling back to these rules;
-// the native planner carries the analytic scheduling math for host-side
-// planning in hot serving loops.
+// Overlap-save block geometry (analytic planner) — native mirror of
+// ops/tiled.py:choose_block_fft's analytic rules. The Python side remains
+// the definition of record and additionally overlays the tuned geometry
+// table (runtime/autotune.py) before falling back to these rules.
 // ---------------------------------------------------------------------------
 
 static int64_t pad8(int64_t x) { return ffc_align_up(x, 8); }
 static int64_t pad128(int64_t x) { return ffc_align_up(x, 128); }
 
-// Tile-padded per-cell VMEM working set of the fused Pallas block-conv
-// kernel (scratch variants v3/v4: wstack=1). Mirrors
-// ops/block_conv.py:block_conv_vmem_bytes — every buffer counted at its
-// (8, 128)-tile-padded footprint (Mosaic allocates scoped VMEM in tiles;
-// the unpadded model admitted plans the compiler aborted).
-int64_t ffc_block_conv_vmem_bytes(int64_t f, int64_t lh, int64_t wc,
-                                  int64_t vh, int64_t vw, int64_t mbh,
-                                  int32_t wstack, int64_t mbw,
-                                  int64_t spec_bytes) {
-  // Inverse matrices have the OPPOSITE axis roles to the spectra blocks:
-  // G is (Vh, Lh) — lh on the lane dim — and M is (Wc, Vw) — wc on the
-  // sublane dim (ops/block_conv.py keeps in sync).
-  const int64_t mats =
-      spec_bytes * 2 * (pad8(vh) * pad128(lh) + pad8(wc) * pad128(vw));
-  lh = pad8(lh);
-  wc = pad128(wc);
-  vh = pad8(vh);
-  vw = pad128(vw);
-  const int64_t d_block = spec_bytes * 2 * mbh * mbw * f * lh * wc;
-  const int64_t k_block = spec_bytes * 2 * f * lh * wc;
-  const int64_t out_block = 4 * mbh * vh * mbw * vw;
-  const int64_t inter =
-      wstack ? 4 * (2 * mbh * vh * wc + 2 * lh * wc + 4 * vh * wc)
-             : 4 * (2 * lh * mbh * wc + 4 * vh * mbh * wc);
-  return 2 * (d_block + k_block + out_block) + mats + inter;
-}
-
-// Whether the fused kernel can run (MBH=MBW=1 worst case) within scoped
-// VMEM: 16 MB for f32 plans, 12 MB for bf16 (hidden f32 conversion copies
-// — measured crash/ok boundary; ops/block_conv.py:_vmem_limit).
-int32_t ffc_block_conv_fits_vmem(int64_t f, int64_t lh, int64_t wc,
-                                 int64_t vh, int64_t vw,
-                                 int64_t spec_bytes) {
-  const int64_t limit =
-      spec_bytes >= 4 ? (int64_t{16} << 20) : (int64_t{12} << 20);
-  return ffc_block_conv_vmem_bytes(f, lh, wc, vh, vw, 1, 1, 1, spec_bytes) <
-         limit;
-}
-
 // Analytic overlap-save block plan — mirrors the fallback rules of
 // ops/tiled.py:choose_block_fft (the measured-table overlay happens in
 // Python before this). Returns 1 and fills (block_h, block_w, plan_kh,
 // plan_kw) when tiling pays, 0 when the direct engine should run.
-// matmul_engine: 1 = MXU-DFT transform engine (any size; wants small
-// aligned valid windows), 0 = XLA-FFT engine (5-smooth sizes, larger
+// matmul_engine: 1 = matmul-DFT transform engine (any size; wants small
+// rounded valid windows), 0 = XLA-FFT engine (5-smooth sizes, larger
 // blocks).
 int32_t ffc_choose_block_fft(int64_t data_h, int64_t data_w, int64_t max_kh,
                              int64_t max_kw, int32_t matmul_engine,
@@ -209,9 +149,8 @@ int32_t ffc_choose_block_fft(int64_t data_h, int64_t data_w, int64_t max_kh,
                              int64_t* out_pkw) {
   int64_t lh, lw;
   if (matmul_engine) {
-    // Valid window aligned to the hardware tile (Vh to 8 sublanes, Vw to
-    // 128 lanes); H blocks small (Vh ≈ K), W blocks wider (Vw ≈ 6·K) —
-    // measured rules, see choose_block_fft.
+    // Valid window rounded (Vh to 8, Vw to 128); H blocks small (Vh ≈ K),
+    // W blocks wider (Vw ≈ 6·K) — see choose_block_fft.
     const int64_t vh0 = pad8(max_kh - 1) > 8 ? pad8(max_kh - 1) : 8;
     const int64_t vw0 = pad128(6 * (max_kw - 1)) > 128
                             ? pad128(6 * (max_kw - 1))
@@ -241,7 +180,8 @@ int32_t ffc_choose_block_fft(int64_t data_h, int64_t data_w, int64_t max_kh,
 // Bump on ANY semantic change to the exported models, not just signature
 // changes — the version gate (runtime/native.py) is what protects the
 // bit-for-bit Python/C++ contract when a stale prebuilt .so escapes the
-// mtime rebuild check. v4: mats axis-role fix in ffc_block_conv_vmem_bytes.
-int32_t ffc_abi_version() { return 4; }
+// mtime rebuild check. v5: nominal-byte bank model; policy 3 and the
+// fused-kernel memory model removed.
+int32_t ffc_abi_version() { return 5; }
 
 }  // extern "C"

@@ -1,7 +1,7 @@
-"""cuda_fft_convolution_tpu — TPU-native FFT filter-bank convolution.
+"""cuda_fft_convolution_tpu — FFT filter-bank convolution in JAX.
 
-A from-scratch JAX/XLA/Pallas rebuild of the capabilities of
-chrischoy/CUDA-FFT-Convolution (reference: /root/reference): multi-channel 2-D
+A from-scratch JAX/XLA rebuild of the capabilities of
+chrischoy/CUDA-FFT-Convolution: multi-channel 2-D
 convolution of image data against a *bank* of filters via FFT, amortizing a
 single forward FFT of the data across the whole bank.
 
@@ -11,12 +11,12 @@ Reference API parity (see SURVEY.md §2/§3):
   - ``conv_spectral``   ≈ cudaConvFFTData      (src/cudaConvFFTData.cu:24)
   - ``conv_spectral_pipelined`` ≈ cudaConvFFTDataStreams (streams variant)
 
-TPU-native design (NOT a translation):
-  - FFTs via ``jnp.fft.rfft2``/``irfft2`` → XLA FFT HLO (replaces cuFFT plans).
+Design:
+  - FFTs via ``jnp.fft.rfft2``/``irfft2`` → XLA FFT HLO (cuFFT on the GPU).
   - Channel reduction is performed *in the spectral domain*, so each kernel
     needs ONE inverse FFT instead of F (the reference does a batched C2R over
     all F channels then sums spatially — src/cudaConvFFTData.cuh:70).
-  - The spectral multiply-accumulate is a fused Pallas kernel (one VMEM pass).
+  - The spectral multiply-accumulate is one XLA pass over split planes.
   - The multi-stream/multi-GPU variant becomes a chunked pipeline +
     ``shard_map`` over a device mesh (data FFT replicated, kernel bank sharded).
 """

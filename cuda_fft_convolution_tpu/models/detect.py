@@ -3,18 +3,13 @@
 The reference library exists to serve DPM/HOG detectors (README.md:4-6
 "many large kernels, large images") and its own demo validates by PEAK
 LOCATION, not by map contents (demoCudaConvolutionFFT.m:58-61) — yet its
-pipeline always materializes every full score map. At the fused kernel's
-measured roofline the OUTPUT MAPS are the dominant HBM traffic (~1.68
-GB/call ≈ 6 of 9 ms at the bf16 DPM config, PERF.md): a serving consumer
-that only wants peaks pays 10⁴× more output bytes than it reads.
+pipeline always materializes every full score map, and a consumer that
+only wants peaks reads 10⁴× fewer bytes than the maps hold.
 
-``detect_peaks`` closes that: on the tiled engine at fused-dispatch
-geometries the maps never touch HBM — the peaks variant of the fused
-Pallas kernel (ops/block_conv.py block_conv_peaks_pallas) reduces each
-output cell to a (max, argmax) pair in VMEM and only the tiny block-max
-pyramid crosses HBM; elsewhere the reduction runs in XLA fused into the
-map producer. Results are exact per-kernel top-1 (every cell max is
-exact), bit-comparable to argmaxing the trimmed maps.
+``detect_peaks`` reduces the maps on the device (XLA, fused into the map
+producer where it can), so only (N,) values and (N, 2) positions leave it.
+Results are exact per-kernel top-1, bit-comparable to argmaxing the
+trimmed maps.
 """
 
 from __future__ import annotations
@@ -61,15 +56,15 @@ def detect_peaks(
     scenario, demoCudaConvolutionFFT.m:41-43) is accepted for
     mode='same' only: every 'same' map is data-sized, so the bucketed
     per-cell maps stack and the reduction runs once across the whole
-    cell array (XLA head — no fused peaks kernel on this route).
+    cell array.
 
     ``correlation=True`` by default: detection scores are correlations
     (the MOSSE/DPM convention — template matching, models/filter_bank.py
     uses the same default).
 
     ``algorithm='auto'|'tiled'`` routes through the overlap-save engine
-    when the planner tiles (maps never hit HBM at fused geometries);
-    'direct' computes the maps and reduces in XLA."""
+    when the planner tiles; 'direct' computes the maps with the big-FFT
+    engine. Both reduce in XLA."""
     validate(
         mode in ("same", "valid", "full"),
         "detect_peaks modes: 'same', 'valid', 'full' (fftmap's circular "
@@ -323,14 +318,10 @@ def detect_top_k(
     (N, k) descending (or (B, N, k) batched) and ``positions`` (N, k, 2) /
     (B, N, k, 2) int32 (row, col) in the ``mode`` window's frame.
 
-    Same routing and input contract as :func:`detect_peaks`. On the tiled
-    engine at fused-dispatch geometries the candidates are the in-VMEM
-    block-max pyramid's CELL maxima: an approximate top-k whose hits are
-    spatially distinct (at most one per output cell — a built-in coarse
-    non-max suppression, which is usually what a detection consumer wants;
-    exact for k = 1 and whenever k reaches the cell count, where the
-    engine falls back to an exact maps reduction). The direct engine and
-    the unfused tiled path are EXACT ``lax.top_k`` over the score maps."""
+    Same routing and input contract as :func:`detect_peaks`: an EXACT
+    ``lax.top_k`` over the score maps (ties broken by ascending flat
+    index). For spatially distinct detections use
+    :func:`detect_local_peaks`."""
     validate(int(k) >= 1, f"k must be >= 1; got {k}")
     k = int(k)
     validate(
@@ -442,14 +433,13 @@ def detect_local_peaks(
     (N, k) result shape, so the host fetch stays tiny and jit-stable
     regardless of how many detections fire.
 
-    Unlike the top-1/top-k heads there is no in-VMEM fused reduction
-    (local maxima compare across block-cell borders): the maps are
-    produced by the regular engine (``algorithm`` as in ``fft_conv``) and
-    the dilation+mask+top-k reduce them in XLA, fused into the producer
-    under jit. ``out_dtype='bfloat16'`` halves the maps traffic between
-    producer and reducer where they do materialize (scores compare in
-    f32 after upcast; returned values are the upcast scores). Ragged
-    cell lists are accepted for mode='same' (see :func:`detect_peaks`)."""
+    The maps are produced by the regular engine (``algorithm`` as in
+    ``fft_conv``) and the dilation+mask+top-k reduce them in XLA, fused
+    into the producer under jit. ``out_dtype='bfloat16'`` halves the maps
+    traffic between producer and reducer where they do materialize
+    (scores compare in f32 after upcast; returned values are the upcast
+    scores). Ragged cell lists are accepted for mode='same' (see
+    :func:`detect_peaks`)."""
     validate(int(k) >= 1, f"k must be >= 1; got {k}")
     validate(int(window) >= 2, f"window must be >= 2; got {window}")
     validate(

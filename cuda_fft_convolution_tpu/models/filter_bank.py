@@ -28,7 +28,7 @@ from cuda_fft_convolution_tpu.ops.conv import (
     irfft2_norm_planes,
     rfft2_padded_planes,
 )
-from cuda_fft_convolution_tpu.ops.spectral_mac import spectral_mac_auto_planes
+from cuda_fft_convolution_tpu.ops.spectral_mac import spectral_mac_planes
 from cuda_fft_convolution_tpu.utils.fft_size import FftSizePolicy, compute_fft_size
 
 
@@ -70,8 +70,7 @@ def detect(
 ) -> jnp.ndarray:
     """Score maps (B, N, H, W) — 'same'-window correlation responses + bias.
 
-    Differentiable end-to-end (jnp.fft has exact VJPs; the Pallas MAC
-    carries a custom VJP)."""
+    Differentiable end-to-end (jnp.fft has exact VJPs)."""
     b, f, h, w = images.shape
     n, kf, kh, kw = model.kernels.shape
     assert kf == f, f"feature dim mismatch: images {f}, bank {kf}"
@@ -82,7 +81,7 @@ def detect(
     k_re, k_im = rfft2_padded_planes(
         model.kernels[..., ::-1, ::-1], fft_h, fft_w
     )
-    p_re, p_im = spectral_mac_auto_planes(d_re, d_im, k_re, k_im)
+    p_re, p_im = spectral_mac_planes(d_re, d_im, k_re, k_im)
     maps = irfft2_norm_planes(p_re, p_im, fft_h, fft_w)
     r0, c0 = (kh - 1) // 2, (kw - 1) // 2
     same = maps[:, :, r0 : r0 + h, c0 : c0 + w]
@@ -113,8 +112,8 @@ def train_step(
     policy: FftSizePolicy | str = FftSizePolicy.FAST,
 ):
     """One SGD step through the FFT-convolution path. Pure; jit/pjit it with
-    whatever shardings the caller's mesh dictates (see parallel/ and
-    __graft_entry__.dryrun_multichip)."""
+    whatever shardings the caller's mesh dictates (see parallel/ and the
+    sharded training step in chip_smoke.py's four-card phase)."""
     loss, grads = jax.value_and_grad(loss_fn)(model, images, targets, policy=policy)
     updates, opt_state = tx.update(grads, opt_state, model)
     model = optax.apply_updates(model, updates)

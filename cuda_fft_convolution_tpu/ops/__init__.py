@@ -1,6 +1,6 @@
 """Device-math layer: padding, FFT wrappers, spectral MAC, convolution cores.
 
-TPU-native replacement of the reference's device-kernel layer
+Replacement of the reference's device-kernel layer
 (src/cudaConvFFTData.cuh: padData / elementwiseProductAndNormalize /
 sumAlongFeatures) and its cuFFT plan usage.
 """

@@ -9,14 +9,15 @@ Semantics preserved from the reference (SURVEY.md §7 "the contract"):
   (demoCudaConvolutionFFT.m:146-151). Kernels are used UN-flipped: this is
   convolution; callers pre-flip for correlation (demo :67-69).
 
-TPU-native difference: the channel reduction is done in the SPECTRAL domain
-(linearity of the DFT): Σ_f IFFT(D_f ⊙ K_f) = IFFT(Σ_f D_f ⊙ K_f), so each
-kernel costs ONE inverse FFT instead of F (the reference runs a batched C2R
-over all F channels then sums spatially, src/cudaConvFFTData.cuh:70-92).
+Difference from the reference: the channel reduction is done in the
+SPECTRAL domain (linearity of the DFT): Σ_f IFFT(D_f ⊙ K_f) =
+IFFT(Σ_f D_f ⊙ K_f), so each kernel costs ONE inverse FFT instead of F
+(the reference runs a batched C2R over all F channels then sums spatially,
+src/cudaConvFFTData.cuh:70-92).
 For an F-channel bank this removes (F−1)/F of all inverse-FFT work.
 
-Internal canonical layout is channel-leading (F, H, W) — W maps to TPU
-lanes, FFTs batch over leading axes natively (≈ cufftPlanMany BATCH=F,
+Internal canonical layout is channel-leading (F, H, W) — W is the minor
+axis, FFTs batch over leading axes natively (≈ cufftPlanMany BATCH=F,
 src/cudaConvolutionFFT.cu:128-142).
 """
 
@@ -41,14 +42,12 @@ _PRECISIONS = {
 }
 
 
-def _use_matmul_fft(fft_h: int, fft_w: int) -> bool:
-    from cuda_fft_convolution_tpu.ops.dft import matmul_fft_profitable
+def _use_matmul_fft() -> bool:
+    """Transform engine: XLA FFT unless the matmul-DFT engine is opted
+    into (``set_config(use_matmul_fft=True)``)."""
     from cuda_fft_convolution_tpu.utils.config import get_config
 
-    cfg = get_config()
-    if cfg.use_matmul_fft is not None:
-        return cfg.use_matmul_fft
-    return matmul_fft_profitable(fft_h, fft_w)
+    return bool(get_config().use_matmul_fft)
 
 
 def _matmul_precision():
@@ -58,13 +57,9 @@ def _matmul_precision():
 
 
 def _inverse_precision():
-    """Precision for the inverse-synthesis dots (config.inverse_precision,
-    default 'high' — XLA's 3-pass split-bf16, the XLA-side twin of the
-    fused kernel's bf16x3: ~2× the HIGHEST MXU rate on the unfused
-    pipeline's flop-dominant stage at ~5e-6 end-to-end error). Forward
-    transforms keep ``matmul_precision`` (HIGHEST) so the two bf16-split
-    stages never compound: HIGH on *every* stage emulated ~9e-6 against
-    the ≤1e-5 bar."""
+    """Precision for the matmul-DFT engine's inverse-synthesis dots
+    (config.inverse_precision, default 'highest'; forward transforms use
+    ``matmul_precision``)."""
     from cuda_fft_convolution_tpu.utils.config import get_config
 
     return _PRECISIONS[get_config().inverse_precision]
@@ -78,14 +73,13 @@ def rfft2_padded_planes(
     representation (no complex64 ever crosses a program boundary).
 
     ≈ padData + cufftExecR2C batched over all leading axes
-    (src/cudaConvolutionFFT.cu:155-167). Transform engine dispatch: MXU-DFT
-    matmuls (ops/dft.py) on TPU up to the size cap — XLA's TPU FFT runs on
-    the vector unit at ~100 GFLOP/s while the MXU path is >10× faster at
-    these sizes — else XLA FFT HLO (complex internally, split on return;
-    inside one XLA program that split is free).
+    (src/cudaConvolutionFFT.cu:155-167). Transform engine: XLA FFT HLO
+    (cuFFT on the GPU; complex internally, split on return — inside one
+    XLA program that split is free), or the opt-in matmul-DFT engine
+    (ops/dft.py).
     """
     x = x.astype(_SPECTRAL_REAL)
-    if _use_matmul_fft(fft_h, fft_w):
+    if _use_matmul_fft():
         from cuda_fft_convolution_tpu.ops.dft import rfft2_mm_planes
 
         return rfft2_mm_planes(x, fft_h, fft_w, precision=_matmul_precision())
@@ -111,8 +105,8 @@ def spectral_mac(
     (src/cudaConvFFTData.cuh:47-92), with the sum moved into the spectral
     domain. ``kernel_fft`` may have any number of leading bank axes.
     The (much larger) kernel spectra are streamed against the single data
-    spectrum, which XLA keeps resident — this is the HBM-bound hot op; a
-    fused Pallas implementation lives in ops/spectral_mac.py.
+    spectrum — this is the memory-bound hot op (split-plane form in
+    ops/spectral_mac.py).
     """
     return jnp.einsum("...fhw,fhw->...hw", kernel_fft, data_fft, precision=precision)
 
@@ -124,8 +118,8 @@ def spectral_mac_planes(
     precision=jax.lax.Precision.HIGHEST,
 ) -> tuple[jnp.ndarray, jnp.ndarray]:
     """Split-plane form of ``spectral_mac``: 4 real einsums XLA fuses into
-    one pass (or into the neighbouring DFT matmuls); the Karatsuba knob is
-    shared with ops/spectral_mac. No complex dtype."""
+    one pass; the Karatsuba knob is shared with ops/spectral_mac. No
+    complex dtype."""
     from cuda_fft_convolution_tpu.ops.spectral_mac import _MAC_KARATSUBA
 
     def e(a, b):
@@ -149,7 +143,7 @@ def irfft2_norm_planes(
     reference's explicit scale (src/cudaConvolutionFFT.cu:270) on top of
     unnormalized cuFFT C2R. Same engine dispatch as rfft2_padded_planes.
     """
-    if _use_matmul_fft(fft_h, fft_w):
+    if _use_matmul_fft():
         from cuda_fft_convolution_tpu.ops.dft import irfft2_mm_planes
 
         return irfft2_mm_planes(
@@ -222,7 +216,7 @@ def direct_conv_single(data: jnp.ndarray, kernel: jnp.ndarray) -> jnp.ndarray:
     small-kernel crossover path).
 
     Matches MATLAB ``sum_i conv2(data(:,:,i), kernel(:,:,i))``
-    (demoCudaConvolutionFFT.m:91-96). Runs on the MXU via
+    (demoCudaConvolutionFFT.m:91-96). Runs through
     lax.conv_general_dilated (which computes correlation, so the kernel is
     flipped here to get convolution). Output (H+Kh−1, W+Kw−1).
     """
@@ -239,8 +233,8 @@ def direct_conv_single(data: jnp.ndarray, kernel: jnp.ndarray) -> jnp.ndarray:
         padding=[(kh - 1, kh - 1), (kw - 1, kw - 1)],
         dimension_numbers=("NCHW", "OIHW", "NCHW"),
         preferred_element_type=_SPECTRAL_REAL,
-        # Full fp32: XLA's default conv precision runs bf16 passes on TPU
-        # (and low-precision paths on CPU) — unacceptable for a test oracle.
+        # Full fp32: XLA's default conv precision may run TF32 on the GPU
+        # (about 3 digits) — unacceptable for a test oracle.
         precision=jax.lax.Precision.HIGHEST,
     )
     return out[0, 0]

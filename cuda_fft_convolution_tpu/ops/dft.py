@@ -1,23 +1,22 @@
-"""DFT transforms as MXU matmuls.
+"""DFT transforms as dense matmuls — the opt-in transform engine.
 
-The TPU-native answer to "cuFFT is the FFT engine" (the reference writes no
-FFT code, SURVEY.md §0): XLA's TPU FFT HLO runs on the vector unit at
-~100 GFLOP/s effective (measured here on v5e), while the MXU delivers tens
-of TFLOP/s on matmuls. For the moderate transform sizes this library uses
-(overlap-save blocks, 128–1024 per axis) an O(L³) dense-DFT matmul beats the
-O(L² log L) FFT by an order of magnitude in wall time because it runs on the
-right unit:
+The default engine is XLA's FFT (cuFFT on the GPU). This module computes
+the same transforms as O(L³) dense-DFT matrix products instead
+(``set_config(use_matmul_fft=True)``). Its one capability an FFT lacks is
+the windowed inverse: the overlap-save engine can synthesize only each
+block's valid window. On the H100 it measured slower than cuFFT at the
+fp32 tier and faster at the bf16 DPM tier (PERF.md, Findings):
 
   rfft2(x)  =  F_h @ x @ Wfwd_w      (separable; Wfwd packs Hermitian)
   irfft2(S) =  Re( G_h @ S @ Winv_w )
 
 Each complex-by-real / complex-by-complex product is expanded into 2 or 4
 real fp32 matmuls with ``preferred_element_type=f32``. Precision is
-configurable: HIGHEST (6-pass bf16 ≈ exact fp32; default — meets the ≤1e-5
-accuracy bar) or HIGH/DEFAULT for speed where tolerance allows.
+configurable: HIGHEST (fp32; default — meets the ≤1e-5 accuracy bar) or
+HIGH/DEFAULT, which run TF32 on the GPU (about 3 digits).
 
 DFT matrices are built on host in float64 and cached per size; at block
-sizes (≤1024) they are ≤8 MB and live in HBM like any constant.
+sizes (≤1024) they are ≤8 MB and live in device memory like any constant.
 """
 
 from __future__ import annotations
@@ -29,23 +28,21 @@ import jax.numpy as jnp
 import numpy as np
 
 # Max axis size for the SINGLE-STAGE dense matmul transform: beyond this the
-# O(L^3)/O(L^2 logL) flop ratio eats the MXU advantage and matrices get big.
-# (2160-per-axis direct transforms still measured faster via MXU-DFT than
-# XLA FFT on v5e: 601 ms vs 953 ms for the 2048²×100-kernel amortized pass.)
+# O(L^3) flops and the matrices get big.
 MATMUL_FFT_MAX_AXIS = 2304
 
 # Max axis size for the TWO-STAGE Cooley–Tukey matmul transform (L = A·B,
-# two dense stage matmuls + a twiddle multiply — the cuFFT-parity answer for
-# arbitrary plan sizes, /root/reference/src/cudaConvolutionFFT.cu:128-142):
+# two dense stage matmuls + a twiddle multiply — the matmul answer for
+# arbitrary plan sizes, src/cudaConvolutionFFT.cu:128-142 of the reference):
 # per-vector cost is L·(A+B) MACs instead of L², so even 8192-point axes
-# stay ~40× under the dense cost and far above XLA's VPU FFT throughput.
+# stay ~40× under the dense cost.
 MATMUL_CT_MAX_AXIS = 8192
 
 # Axis size above which a factorable length prefers the CT path over the
 # dense single-stage matmul (dense is still used for the windowed partial
 # inverses the overlap-save engine relies on — a capability CT lacks).
 # None = only above the dense cap; overridable via FFTCONV_CT_MIN_AXIS for
-# measurement (perf/bench_ct.py decides the shipped value).
+# measurement.
 MATMUL_CT_MIN_AXIS: int | None = None
 
 
@@ -115,10 +112,10 @@ def _inv_full_mats(l: int) -> tuple[np.ndarray, np.ndarray]:
     )
 
 
-# Karatsuba 3-mult complex matmuls save 25% of MXU passes but keep a THIRD
+# Karatsuba 3-mult complex matmuls save 25% of the dot passes but keep a THIRD
 # full-size temporary live; use them only when that temp is small enough not
-# to matter for peak HBM (the F=31 direct config OOM'd with it).
-_KARATSUBA_MAX_TEMP_BYTES = 2 << 30  # tiled-path temps ~1.1 GB: keep fast
+# to matter for peak device memory.
+_KARATSUBA_MAX_TEMP_BYTES = 2 << 30
 
 
 def _use_karatsuba(out_elems: int) -> bool:
@@ -126,7 +123,7 @@ def _use_karatsuba(out_elems: int) -> bool:
 
 
 def _mm(a, b, precision):
-    """a (..., K) @ b (K, M) → (..., M), fp32 accumulate on the MXU."""
+    """a (..., K) @ b (K, M) → (..., M), fp32 accumulate."""
     return jnp.einsum(
         "...k,km->...m", a, b,
         precision=precision, preferred_element_type=jnp.float32,
@@ -145,7 +142,7 @@ def rfft2_mm_planes(
     x: jnp.ndarray, fft_h: int, fft_w: int,
     *, precision=jax.lax.Precision.HIGHEST,
 ) -> tuple[jnp.ndarray, jnp.ndarray]:
-    """rfft2 of the trailing (H, W) axes via MXU matmuls → (re, im) f32
+    """rfft2 of the trailing (H, W) axes via matmuls → (re, im) f32
     planes (the native output of the split-plane math — no complex is ever
     formed). Zero-padding to (fft_h, fft_w) is implicit (DFT matrix columns
     beyond the input extent multiply zeros, so the matrices are simply
@@ -192,7 +189,7 @@ def irfft2_mm_planes(
     window: tuple[int, int, int, int] | None = None,
 ) -> jnp.ndarray:
     """irfft2 of split (re, im) f32 planes (..., fft_h, fft_w//2+1) →
-    (..., fft_h, fft_w) f32 via MXU matmuls, normalization 1/(fft_h·fft_w)
+    (..., fft_h, fft_w) f32 via matmuls, normalization 1/(fft_h·fft_w)
     folded into the matrices.
 
     ``window=(row0, nrows, col0, ncols)`` computes ONLY that output window —
@@ -200,7 +197,7 @@ def irfft2_mm_planes(
     proportionally. An FFT cannot do partial outputs; the overlap-save
     engine uses this to synthesize just each block's valid region."""
     # bf16 serving tier: bf16 spectra → bf16 dot operands (native
-    # single-pass MXU) with f32 ACCUMULATION (preferred_element_type in
+    # single-pass dots) with f32 ACCUMULATION (preferred_element_type in
     # _mm/_mml) — "bf16 inputs, fp32 spectral accumulation"
     # (BASELINE configs[4]). The synthesis matrices round to bf16 too;
     # measured tier accuracy is pinned by tests/test_bf16_tier.py.
@@ -253,24 +250,6 @@ def irfft2_mm(
     )
 
 
-def matmul_fft_profitable(fft_h: int, fft_w: int) -> bool:
-    """Auto-dispatch predicate: MXU-DFT wins on TPU up to moderate sizes
-    dense (the crossover vs XLA's VPU FFT is far above typical block sizes;
-    the cap mostly bounds DFT-matrix memory and O(L³) growth), and beyond
-    the dense cap whenever the axis admits a two-stage Cooley–Tukey
-    factorization (cuFFT-parity: the reference plans arbitrary FFT_H×FFT_W,
-    /root/reference/src/cudaConvolutionFFT.cu:128-142)."""
-    return (
-        jax.default_backend() == "tpu"
-        and _axis_on_mxu(fft_h)
-        and _axis_on_mxu(fft_w)
-    )
-
-
-def _axis_on_mxu(l: int) -> bool:
-    return l <= MATMUL_FFT_MAX_AXIS or ct_factor(l) is not None
-
-
 # ---------------------------------------------------------------------------
 # Two-stage Cooley–Tukey transforms (axes above the dense-matrix cap, and
 # large axes where the A+B-stage cost beats the dense L-stage cost)
@@ -281,8 +260,8 @@ def _axis_on_mxu(l: int) -> bool:
 def ct_factor(l: int) -> tuple[int, int] | None:
     """Factor L = A·B for the four-step transform, or None.
 
-    B is the fast (lane) axis of the (A, B) view, so candidates prefer
-    B ≡ 0 (mod 128) (full lane tiles), then mod 8; among equals, minimize
+    B is the fast (minor) axis of the (A, B) view, so candidates prefer
+    B ≡ 0 (mod 128), then mod 8; among equals, minimize
     A + B (per-vector MACs = L·(A+B)). Both factors must fit the dense
     stage cap."""
     if l < 4 or l > MATMUL_CT_MAX_AXIS:
@@ -294,8 +273,8 @@ def ct_factor(l: int) -> tuple[int, int] | None:
         a = l // b
         if a < 2 or a > MATMUL_FFT_MAX_AXIS:
             continue
-        lane = 0 if b % 128 == 0 else (1 if b % 8 == 0 else 2)
-        score = (lane, a + b)
+        align = 0 if b % 128 == 0 else (1 if b % 8 == 0 else 2)
+        score = (align, a + b)
         if best_score is None or score < best_score:
             best, best_score = (a, b), score
     return best
@@ -328,9 +307,9 @@ def _ct_axis_last(xr, xi, l: int, sign: int, precision, *,
     four-step algorithm, natural-order in and out:
 
         view x as (A, B) [row-major: n = B·n1 + n2]
-        1. (A, A) stage matmul over n1          (MXU)
-        2. twiddle multiply exp(sign·2πi·j·n2/L) (VPU)
-        3. (B, B) stage matmul over n2          (MXU)
+        1. (A, A) stage matmul over n1          (matmul)
+        2. twiddle multiply exp(sign·2πi·j·n2/L) (elementwise)
+        3. (B, B) stage matmul over n2          (matmul)
         4. transpose (j, k) → (k, j), flatten    [out index = A·k + j]
 
     ``xi=None`` means real input (2 matmuls in stage 1 instead of 4).
@@ -387,7 +366,7 @@ def _ct_axis_h(xr, xi, l: int, sign: int, precision, *,
                normalize: bool = False):
     """Same four-step transform applied to the SECOND-TO-LAST axis (the H
     axis of (..., H, W) images) — einsums carry the trailing W axis so the
-    lane dimension stays W and no global transpose is ever materialized."""
+    minor dimension stays W and no global transpose is ever materialized."""
     a, b = ct_factor(l)
     in_len = xr.shape[-2]
     if in_len < l:

@@ -10,9 +10,9 @@ Reference equivalents:
     the band serves bottom/right edge outputs, the wrap-to-origin region
     serves top/left edge outputs through the circular FFT.
 
-On TPU these are pure data-movement ops; XLA lowers ``jax.lax.pad`` /
-dynamic-slice fusions efficiently, so no Pallas is needed for zero padding —
-it fuses into the FFT's input. Border-clamp uses clamped gathers.
+These are pure data-movement ops; XLA lowers ``jax.lax.pad`` /
+dynamic-slice fusions efficiently, so no custom kernel is needed for zero
+padding — it fuses into the FFT's input. Border-clamp uses clamped gathers.
 """
 
 from __future__ import annotations

@@ -1,9 +1,9 @@
 """Fused spectral multiply-accumulate (the hot op).
 
-TPU-native replacement for the reference's elementwiseProductAndNormalize +
+Replacement for the reference's elementwiseProductAndNormalize +
 sumAlongFeatures kernel pair (src/cudaConvFFTData.cuh:47-92), which the
 reference launches back-to-back per kernel with an intermediate
-FFT_H×FFT_W×F product buffer round-tripped through HBM
+FFT_H×FFT_W×F product buffer round-tripped through device memory
 (src/cudaConvolutionFFT.cu:263-282). Here both are one pass:
 
     out[b, n, s] = Σ_f data[b, f, s] · kernel[n, f, s]      (complex)
@@ -14,43 +14,25 @@ FFT instead of F. Normalization is left to the inverse transform (cuFFT is
 unnormalized so the reference scales by 1/(FFT_W·FFT_H) here,
 src/cudaConvFFTData.cuh:56).
 
-All spectra are SPLIT (re, im) f32 planes end-to-end — TPU Pallas has no
-complex dtype (SURVEY.md §7 hard-part (c)) and some TPU runtimes emulate
-complex64 with costly boundary splits, so complex never exists anywhere:
-
-  - ``spectral_mac_planes``: 4 real einsums — XLA fuses them into one VPU
-    pass (and into the adjacent MXU-DFT matmuls when they are neighbours).
-  - ``spectral_mac_pallas_planes``: explicit Pallas kernel; the complex MAC
-    in registers:
-        or = Σ_f (kr·dr − ki·di),  oi = Σ_f (kr·di + ki·dr)
-    The grid iterates kernels innermost so the data block (the small,
-    bank-invariant operand) stays resident in VMEM across the whole bank —
-    each spectrum byte moves HBM→VMEM exactly once; the pass is
-    kernel-bank-read bound, the HBM floor for this op.
-
-Complex-facing wrappers (``spectral_mac_einsum``, ``spectral_mac_pallas``,
-``spectral_mac_auto``) are kept for interop and tests.
-
-``spectral_mac_auto_planes`` picks the implementation (einsum by default:
-measured on v5e at F=1 AND F=31 it wins because XLA fuses it into the DFT
-matmuls — a fusion a Pallas custom-call blocks; Pallas stays opt-in).
+Spectra are SPLIT (re, im) planes end-to-end; the MAC is four real einsums
+that XLA compiles into one pass. At F=1 XLA fuses them into an elementwise
+kernel that also builds the complex input of the inverse FFT; at larger F
+it hands them to cuBLAS as a batched GEMM over the spectral pixels, which
+tiles the (blocks × kernels) product in shared memory. A hand-written
+Triton MAC (one program per pixel tile × kernel, F reduced in registers)
+measured slower at both widths on the H100 (PERF.md, Findings) and was
+removed.
 """
 
 from __future__ import annotations
 
-import functools
-
 import jax
 import jax.numpy as jnp
-from jax.experimental import pallas as pl
-from jax.experimental.pallas import tpu as pltpu
 
 # Karatsuba (3-contraction) MAC: saves one (B, N, H, Wc) product tensor of
-# HBM traffic IF XLA fuses the elementwise pre-adds into the dot operands.
-# Measured on v5e it REGRESSED the big-kernel unfused path 3.4x (XLA's
-# fusion/scheduling of the 3-dot form lost far more than the saved
-# product), so the 4-contraction form is the default; the env knob keeps
-# the variant measurable per deployment.
+# traffic IF XLA fuses the elementwise pre-adds into the dot operands. The
+# 4-contraction form is the default; the env knob keeps the variant
+# measurable per deployment (not measured on the GPU).
 import os as _os
 
 _MAC_KARATSUBA = _os.environ.get("FFTCONV_MAC_KARATSUBA", "0") not in (
@@ -58,23 +40,15 @@ _MAC_KARATSUBA = _os.environ.get("FFTCONV_MAC_KARATSUBA", "0") not in (
 )
 
 # bf16-tier MAC lowering: native bf16 dots want relayouted operands inside
-# a chunked lax.map, and XLA HOISTS that relayout to the whole bank — at
-# 576 F=31 kernels that is 2 full 5 GB bank copies (measured compile OOM).
-# The ``bf16_upcast`` lowering instead feeds f32 dots via converts fused
-# into the operand reads: bf16 bytes off HBM, no layout constraint. The
-# F-contraction's flops are negligible (~40 GFLOP at N=576), so the f32
-# passes cost nothing next to the traffic. Measured on v5e (F=31 flat
-# bank): native wins UNCHUNKED (53.1 vs 58.8 ms at N=288); inside the
-# chunk loop they tie (80.0 ms at N=576 chunk 96) and only upcast is safe
-# — so chunked callers pass bf16_upcast=True and unchunked callers leave
-# the default. FFTCONV_BF16_MAC_UPCAST=1 forces it everywhere.
+# a chunked lax.map, and XLA may hoist that relayout to the whole bank (a
+# full extra bank copy). The ``bf16_upcast`` lowering instead feeds f32 dots
+# via converts fused into the operand reads: bf16 bytes off device memory,
+# no layout constraint; the F-contraction's flops are negligible next to
+# the traffic. Chunked callers pass bf16_upcast=True and unchunked callers
+# leave the default. FFTCONV_BF16_MAC_UPCAST=1 forces it everywhere.
 _BF16_MAC_UPCAST = _os.environ.get(
     "FFTCONV_BF16_MAC_UPCAST", "0"
 ) not in ("0", "false", "False", "")
-
-_LANE = 512  # lane width of one tile row (multiple of the 128-lane VPU)
-_SUBLANE = 8  # fp32 sublane quantum
-_VMEM_BUDGET = 4 * 1024 * 1024  # per-block-set working bytes target
 
 
 def spectral_mac_planes(
@@ -86,33 +60,29 @@ def spectral_mac_planes(
 ) -> tuple[jnp.ndarray, jnp.ndarray]:
     """(B, F, H, Wc) × (N, F, H, Wc) → (B, N, H, Wc) split planes.
 
-    4 real contractions by default (XLA fuses them into one pass or into
-    the adjacent DFT matmuls); FFTCONV_MAC_KARATSUBA=1 selects the
-    3-contraction Karatsuba form, which saves one product tensor of HBM
-    traffic on paper but measured 3.4× SLOWER on the v5e big-kernel
-    unfused path (XLA's fusion of the 3-dot form loses more than the
-    saved product) — see the module-level knob.
+    4 real contractions by default (XLA fuses them into one pass);
+    FFTCONV_MAC_KARATSUBA=1 selects the 3-contraction Karatsuba form —
+    see the module-level knob.
 
-    HIGHEST precision: if XLA lowers the F-contraction through a dot, the
-    default TPU precision would run bf16 passes — the spectral accumulation
-    must stay full fp32 (BASELINE.json: ≤1e-5 rel err).
+    HIGHEST precision: when XLA lowers the F-contraction through a dot,
+    a lower precision would run it in TF32 on the GPU (about 3 digits) —
+    the spectral accumulation must stay full fp32 (≤1e-5 rel err).
 
     bf16 serving tier: when the spectra are STORED bf16 (fft_data /
-    fft_kernels ``store_dtype='bfloat16'`` — BASELINE configs[4]'s "bf16
-    inputs"), the contractions run single-pass on the native bf16 operands
-    with f32 ACCUMULATION (``preferred_element_type``) and the outputs stay
-    f32 — half the input HBM traffic, full-rate MXU."""
+    fft_kernels ``store_dtype='bfloat16'``), the contractions run
+    single-pass on the native bf16 operands with f32 ACCUMULATION
+    (``preferred_element_type``) and the outputs stay f32 — half the
+    input traffic."""
     bf16 = dr.dtype == jnp.bfloat16 or kr.dtype == jnp.bfloat16
     if bf16:
         if bf16_upcast or (bf16_upcast is None and _BF16_MAC_UPCAST):
             dr, di = dr.astype(jnp.float32), di.astype(jnp.float32)
             kr, ki = kr.astype(jnp.float32), ki.astype(jnp.float32)
             if not _MAC_KARATSUBA:
-                # the upcast operands are EXACTLY bf16-valued, so HIGHEST's
-                # extra split-bf16 passes (hi·lo, lo·hi, …) are identically
-                # zero — single-pass DEFAULT is bit-identical and 6× less
-                # MXU work. (Karatsuba's dr+di pre-adds are NOT bf16-exact:
-                # that branch keeps the caller's precision.)
+                # the upcast operands are EXACTLY bf16-valued, so a
+                # single-pass DEFAULT dot loses nothing against HIGHEST.
+                # (Karatsuba's dr+di pre-adds are NOT bf16-exact: that
+                # branch keeps the caller's precision.)
                 precision = jax.lax.Precision.DEFAULT
         else:
             dr, di = dr.astype(jnp.bfloat16), di.astype(jnp.bfloat16)
@@ -140,21 +110,18 @@ def spectral_mac_flat_planes(
     precision=jax.lax.Precision.HIGHEST,
     bf16_upcast: bool | None = None,
 ) -> tuple[jnp.ndarray, jnp.ndarray]:
-    """MAC on FLAT (lane-packed) spectra (types.SpectralKernels ``flat``):
-    identical math to ``spectral_mac_planes`` — the complex product and
-    F-reduction are elementwise over spectral pixels, so the packing is
-    free here, while the resident bank reads at nominal bytes instead of
-    the (8, 128)-tile-padded planar layout (1.43× for 540×271 planes).
-    Same 4-contraction default / Karatsuba knob and bf16 serving tier as
-    ``spectral_mac_planes``."""
+    """MAC on FLAT spectra (types.SpectralKernels ``flat``, one spectral
+    pixel axis): identical math to ``spectral_mac_planes`` — the complex
+    product and F-reduction are elementwise over spectral pixels, so the
+    packing is free here. Same 4-contraction default / Karatsuba knob and
+    bf16 serving tier as ``spectral_mac_planes``."""
     bf16 = dr.dtype == jnp.bfloat16 or kr.dtype == jnp.bfloat16
     if bf16:
         if bf16_upcast or (bf16_upcast is None and _BF16_MAC_UPCAST):
             dr, di = dr.astype(jnp.float32), di.astype(jnp.float32)
             kr, ki = kr.astype(jnp.float32), ki.astype(jnp.float32)
             if not _MAC_KARATSUBA:
-                # bit-identical to HIGHEST on exactly-bf16-valued operands
-                # (see spectral_mac_planes) at 1/6 the MXU passes
+                # exact on bf16-valued operands (see spectral_mac_planes)
                 precision = jax.lax.Precision.DEFAULT
         else:
             dr, di = dr.astype(jnp.bfloat16), di.astype(jnp.bfloat16)
@@ -180,170 +147,5 @@ def spectral_mac_einsum(data_fft: jnp.ndarray, kernel_fft: jnp.ndarray) -> jnp.n
     o_r, o_i = spectral_mac_planes(
         jnp.real(data_fft), jnp.imag(data_fft),
         jnp.real(kernel_fft), jnp.imag(kernel_fft),
-    )
-    return jax.lax.complex(o_r, o_i)
-
-
-def _choose_rows(f: int, r_total: int) -> int:
-    """Row-tile size (multiple of 8 sublanes): the 4 re/im input blocks of
-    shape (F, R, LANE) plus outputs must fit the VMEM budget with double
-    buffering."""
-    max_r = _VMEM_BUDGET // (2 * 4 * 4 * _LANE * max(f, 1))
-    r = max(_SUBLANE, (max_r // _SUBLANE) * _SUBLANE)
-    r = min(r, 512 // _SUBLANE * _SUBLANE)  # keep blocks modest for pipelining
-    # Don't tile beyond the (sublane-padded) problem size.
-    return min(r, -(-r_total // _SUBLANE) * _SUBLANE)
-
-
-def _mac_kernel(dr_ref, di_ref, kr_ref, ki_ref, or_ref, oi_ref):
-    dr, di = dr_ref[0], di_ref[0]  # (F, R, LANE)
-    kr, ki = kr_ref[0], ki_ref[0]  # (F, R, LANE)
-    or_ref[0, 0] = jnp.sum(kr * dr - ki * di, axis=0)
-    oi_ref[0, 0] = jnp.sum(kr * di + ki * dr, axis=0)
-
-
-@functools.partial(jax.jit, static_argnames=("interpret",))
-def spectral_mac_pallas_planes(
-    dr: jnp.ndarray, di: jnp.ndarray,  # (B, F, H, Wc) f32
-    kr: jnp.ndarray, ki: jnp.ndarray,  # (N, F, H, Wc) f32
-    *,
-    interpret: bool = False,
-) -> tuple[jnp.ndarray, jnp.ndarray]:
-    """Fused complex MAC as a Pallas TPU kernel on split planes →
-    (B, N, H, Wc) split planes.
-
-    The MAC is purely elementwise over pixels + a reduction over F, so the
-    spatial axes are flattened to one lane axis S = H·Wc and padded to the
-    tile size (padding multiplies zeros — exact).
-    """
-    b, f, h, wc = dr.shape
-    n = kr.shape[0]
-    s = h * wc
-    # Lay the flattened spectrum out as (rows, _LANE) tiles; pad rows to the
-    # row-tile so every Pallas block is (8k, 128k)-aligned.
-    r_total = -(-s // _LANE)
-    rt = _choose_rows(f, r_total)
-    r_pad = -(-r_total // rt) * rt
-    s_pad = r_pad * _LANE
-
-    def tile(x, lead):
-        x = x.reshape(lead, f, s).astype(jnp.float32)
-        x = jnp.pad(x, ((0, 0), (0, 0), (0, s_pad - s)))
-        return x.reshape(lead, f, r_pad, _LANE)
-
-    dr_t, di_t = tile(dr, b), tile(di, b)
-    kr_t, ki_t = tile(kr, n), tile(ki, n)
-
-    grid = (b, r_pad // rt, n)  # n innermost: data block cached across bank
-    data_spec = pl.BlockSpec(
-        (1, f, rt, _LANE), lambda bi, si, ni: (bi, 0, si, 0),
-        memory_space=pltpu.VMEM,
-    )
-    kern_spec = pl.BlockSpec(
-        (1, f, rt, _LANE), lambda bi, si, ni: (ni, 0, si, 0),
-        memory_space=pltpu.VMEM,
-    )
-    out_spec = pl.BlockSpec(
-        (1, 1, rt, _LANE), lambda bi, si, ni: (bi, ni, si, 0),
-        memory_space=pltpu.VMEM,
-    )
-
-    out_shape = jax.ShapeDtypeStruct((b, n, r_pad, _LANE), jnp.float32)
-    o_r, o_i = pl.pallas_call(
-        _mac_kernel,
-        grid=grid,
-        in_specs=[data_spec, data_spec, kern_spec, kern_spec],
-        out_specs=(out_spec, out_spec),
-        out_shape=(out_shape, out_shape),
-        cost_estimate=pl.CostEstimate(
-            flops=8 * b * n * f * s,
-            bytes_accessed=8 * s * (b * f + n * f + b * n),
-            transcendentals=0,
-        ),
-        interpret=interpret,
-    )(dr_t, di_t, kr_t, ki_t)
-    o_r = o_r.reshape(b, n, s_pad)[..., :s].reshape(b, n, h, wc)
-    o_i = o_i.reshape(b, n, s_pad)[..., :s].reshape(b, n, h, wc)
-    return o_r, o_i
-
-
-def spectral_mac_pallas(
-    data_fft: jnp.ndarray,
-    kernel_fft: jnp.ndarray,
-    *,
-    interpret: bool = False,
-) -> jnp.ndarray:
-    """Complex-facing wrapper of ``spectral_mac_pallas_planes``."""
-    o_r, o_i = spectral_mac_pallas_planes(
-        jnp.real(data_fft).astype(jnp.float32),
-        jnp.imag(data_fft).astype(jnp.float32),
-        jnp.real(kernel_fft).astype(jnp.float32),
-        jnp.imag(kernel_fft).astype(jnp.float32),
-        interpret=interpret,
-    )
-    return jax.lax.complex(o_r, o_i)
-
-
-@jax.custom_vjp
-def _mac_pallas_ad(dr, di, kr, ki):
-    interpret = jax.default_backend() != "tpu"
-    return spectral_mac_pallas_planes(dr, di, kr, ki, interpret=interpret)
-
-
-def _mac_pallas_ad_fwd(dr, di, kr, ki):
-    return _mac_pallas_ad(dr, di, kr, ki), (dr, di, kr, ki)
-
-
-def _mac_pallas_ad_bwd(res, g):
-    # The MAC is linear in all four planes; its VJP is defined to be exactly
-    # the einsum implementation's (both cotangents are themselves MAC-shaped
-    # contractions, so training through the Pallas forward stays consistent
-    # with the einsum path bit-for-fp32).
-    dr, di, kr, ki = res
-    _, vjp = jax.vjp(
-        lambda a, b, c, d: spectral_mac_planes(a, b, c, d), dr, di, kr, ki
-    )
-    return vjp(g)
-
-
-_mac_pallas_ad.defvjp(_mac_pallas_ad_fwd, _mac_pallas_ad_bwd)
-
-
-def spectral_mac_auto_planes(
-    dr: jnp.ndarray, di: jnp.ndarray,
-    kr: jnp.ndarray, ki: jnp.ndarray,
-    *,
-    use_pallas: bool | None = None,
-    bf16_upcast: bool | None = None,
-) -> tuple[jnp.ndarray, jnp.ndarray]:
-    """Implementation dispatch on split planes. ``use_pallas=None`` → einsum
-    (measured winner on v5e — XLA fuses it into the neighbouring transform
-    matmuls, a fusion the Pallas custom-call blocks; F=1: 209 vs 315 ms,
-    F=31: 50 vs 68 ms). The Pallas path stays available explicitly
-    (use_pallas=True) for backends where that fusion doesn't happen, and is
-    differentiable via a custom VJP (backward = the einsum contractions)."""
-    if use_pallas is None:
-        use_pallas = False
-    if dr.dtype == jnp.bfloat16 or kr.dtype == jnp.bfloat16:
-        use_pallas = False  # the Pallas MAC is fp32-only; the bf16 serving
-        # tier runs the einsum (native single-pass dots, f32 accumulation)
-    if not use_pallas:
-        return spectral_mac_planes(dr, di, kr, ki, bf16_upcast=bf16_upcast)
-    return _mac_pallas_ad(dr, di, kr, ki)
-
-
-def spectral_mac_auto(
-    data_fft: jnp.ndarray,
-    kernel_fft: jnp.ndarray,
-    *,
-    use_pallas: bool | None = None,
-) -> jnp.ndarray:
-    """Complex-facing wrapper of ``spectral_mac_auto_planes``."""
-    o_r, o_i = spectral_mac_auto_planes(
-        jnp.real(data_fft).astype(jnp.float32),
-        jnp.imag(data_fft).astype(jnp.float32),
-        jnp.real(kernel_fft).astype(jnp.float32),
-        jnp.imag(kernel_fft).astype(jnp.float32),
-        use_pallas=use_pallas,
     )
     return jax.lax.complex(o_r, o_i)

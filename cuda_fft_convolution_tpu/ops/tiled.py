@@ -6,8 +6,8 @@ regime (large image × bank of much smaller kernels, README.md:4-6): instead
 of one (H+K−1)-point FFT per kernel, the image is cut into overlapping
 blocks of a small FFT size L, each block is transformed ONCE for the whole
 bank, and every kernel's spectrum is computed at size L — for a 2048² image
-and 64² kernels that shrinks each kernel FFT by ~18× in pixels and keeps all
-spectra VMEM-friendly. Classic overlap-save: each block's circular
+and 64² kernels that shrinks each kernel FFT by ~18× in pixels and keeps
+the bank spectra small. Classic overlap-save: each block's circular
 convolution is valid linear convolution in its last L−K+1 rows/cols; the
 wrapped band is discarded and blocks are laid edge-to-edge.
 
@@ -34,7 +34,7 @@ from cuda_fft_convolution_tpu.ops.conv import (
     irfft2_norm_planes,
     rfft2_padded_planes,
 )
-from cuda_fft_convolution_tpu.ops.spectral_mac import spectral_mac_auto_planes
+from cuda_fft_convolution_tpu.ops.spectral_mac import spectral_mac_planes
 from cuda_fft_convolution_tpu.utils.config import register_jit_consumer
 from cuda_fft_convolution_tpu.utils.fft_size import next_fast_len
 
@@ -48,10 +48,9 @@ def choose_block_plan(
     """Like ``choose_block_fft`` but returns the full overlap-save plan
     (block_h, block_w, plan_kh, plan_kw) where (plan_kh, plan_kw) is the
     EFFECTIVE kernel envelope — ≥ the user's (max_kh, max_kw) when a
-    measured geometry deliberately enlarges the overlap so the valid window
-    V = block − plan_k + 1 is tile-aligned (e.g. the radix-2 v4 plan:
-    blocks (256, 511), valid (192, 384) → envelope (65, 128)). A larger
-    envelope only adds prehistory zeros; results are identical."""
+    tuned geometry (runtime/autotune.py) deliberately enlarges the overlap
+    to pick its valid window V = block − plan_k + 1. A larger envelope
+    only adds prehistory zeros; results are identical."""
     blk = choose_block_fft(
         data_h, data_w, max_kh, max_kw, min_ratio=min_ratio,
         max_block=max_block, matmul_engine=matmul_engine,
@@ -70,11 +69,11 @@ def choose_block_fft(
 ) -> tuple | None:
     """Pick the overlap-save block FFT size, or None when tiling won't pay.
 
-    A MEASURED geometry table (runtime/autotune.py — seeded from sweeps on
-    real chips, extensible per deployment) is consulted first on TPU; the
-    analytic rules below are the fallback for unmeasured shapes.
+    On the opt-in matmul-DFT engine a tuned geometry table
+    (runtime/autotune.py — filled per deployment by the live tuner) is
+    consulted first; the analytic rules below cover untuned shapes.
 
-    Engine-aware fallback: the MXU-DFT engine's per-output-pixel cost grows
+    Engine-aware rules: the matmul-DFT engine's per-output-pixel cost grows
     ~linearly with block size (dense O(L³) over (L−K+1)² outputs) and works
     for ANY size, so it wants the smallest block that keeps overlap
     redundancy sane with a lane-aligned Hermitian width. The XLA-FFT engine
@@ -85,7 +84,7 @@ def choose_block_fft(
     if matmul_engine is None:
         from cuda_fft_convolution_tpu.ops.conv import _use_matmul_fft
 
-        matmul_engine = _use_matmul_fft(max_block, max_block)
+        matmul_engine = _use_matmul_fft()
     if matmul_engine:
         from cuda_fft_convolution_tpu.runtime.autotune import (
             lookup_tuned_geometry,
@@ -96,9 +95,9 @@ def choose_block_fft(
         )
         if tuned is not None:
             vh, vw = tuned[0], tuned[1]
-            if len(tuned) >= 5:
+            if len(tuned) == 4:
                 # explicit block dims → an enlarged effective envelope
-                lh, lw = tuned[3], tuned[4]
+                lh, lw = tuned[2], tuned[3]
             else:
                 lh = min(vh + max_kh - 1, max_block)
                 lw = min(vw + max_kw - 1, max_block)
@@ -112,14 +111,11 @@ def choose_block_fft(
             ):
                 return (lh, lw, pkh, pkw) if _with_plan else (lh, lw)
             # tuned block doesn't fit this image/kernel ratio → fall through
-        # The dense DFT works at ANY size, so geometry is chosen for the
-        # hardware: the VALID window (V = L − K + 1) is what gets written,
-        # so align V itself — Vh to 8 sublanes, Vw to 128 lanes — which
-        # also satisfies the fused kernel's output-block constraints.
-        # Measured on v5e (2048²×100×64² sweeps): H blocks SMALL (Vh ≈ K —
-        # dense-DFT cost/pixel grows with L and windowed inverses absorb the
-        # overlap redundancy: V=(64,384) gave 5.44 GPixF/s vs 4.86 at
-        # V=(128,384)), W blocks wider (Vw ≈ 6×K).
+        # The dense DFT works at ANY size: the VALID window
+        # (V = L − K + 1) is what gets written, so V itself is rounded —
+        # Vh to 8, Vw to 128. H blocks stay small (Vh ≈ K: dense-DFT
+        # cost per pixel grows with L and the windowed inverse absorbs the
+        # overlap redundancy), W blocks wider (Vw ≈ 6×K).
         ratio_h = 1 if min_ratio is None else min_ratio
         ratio_w = 6 if min_ratio is None else 2 * min_ratio
         vh = max(-(-(ratio_h * (max_kh - 1)) // 8) * 8, 8)
@@ -203,75 +199,21 @@ def fft_data_blocks(
     xb = xb[..., c]  # (B, F, nbh, block_h, nbw, block_w)
     xb = jnp.moveaxis(xb, (2, 4), (1, 2))  # (B, nbh, nbw, F, block_h, block_w)
     # rfft2_padded_planes is a no-op pad here (blocks are already full size)
-    # but routes through the transform-engine dispatch (MXU-DFT vs XLA FFT).
+    # but routes through the transform-engine dispatch (XLA FFT or the
+    # opt-in matmul-DFT engine).
     return rfft2_padded_planes(xb, block_h, block_w)
 
 
-# Measured fused-LOSER geometries (round-4 perf/sweep_f8_fused.py on v5e,
-# full F × K × tier sweep): (block_h, block_w, F, spec_bytes) where the
-# fused kernel compiled, passed every legality gate, and still measured
-# SLOWER than the unfused pipeline — dispatch must not route them fused.
-#   (63, 287, 16, 4): f32 F=16, vh=32 — 45.5 vs 35.9 ms unfused (the
-#       narrow-cell + high-F combination starves the MXU; F=8 at the same
-#       blocks WINS 30.8 vs 41.4, so an F-cap can't express this).
-#   (127, 447, 8, 2): bf16 F=8 — 44.4 vs 43.2 ms (marginal; the tier's
-#       VPU upcast bill at 8 planes/block erases the dot savings; bf16
-#       F=16 at the SAME blocks wins 33.9 vs 46.2).
-_FUSED_DENY = {
-    (63, 287, 16, 4),
-    (127, 447, 8, 2),
-}
-
-
-def fused_dispatch_auto(
-    f: int, block_h: int, block_w: int, vh: int, vw: int,
-    spec_dtype=jnp.float32,
-) -> bool:
-    """The auto fused-dispatch condition — THE definition of when the fused
-    Pallas block-conv runs instead of the unfused MAC+inverse pipeline
-    (conv_blocks' auto branch and the autotuner's registered ``fused`` flag
-    both call this; keep it single-sourced so registered entries always
-    record what actually runs).
-
-    The scratch-variant fused kernels beat the unfused pipeline at almost
-    every legal geometry measured on v5e at F ≤ 16 (perf/bench_fused_v3.py,
-    perf/sweep_f8_fused.py — the round-4 full F × K × tier sweep), so
-    legality — TPU matmul-transform path, (8,128)-aligned valid window,
-    wide-enough dots, VMEM fit — is the condition, plus the F cap (at F=31
-    the kernel-spectra refetch bill makes fused LOSE where it even
-    compiles: 54.6 vs 38.9 ms f32, 54.4 vs 42.2 bf16 at blocks (63,287) —
-    PERF.md's closed F=31 argument) and the measured ``_FUSED_DENY``
-    geometries where the sweep caught fused losing inside the legal
-    envelope."""
-    from cuda_fft_convolution_tpu.ops.block_conv import block_conv_fits_vmem
-    from cuda_fft_convolution_tpu.ops.conv import _use_matmul_fft
-
-    lwc = block_w // 2 + 1
-    dt = jnp.dtype(spec_dtype)
-    if (block_h, block_w, f, dt.itemsize) in _FUSED_DENY:
-        return False
-    return (
-        jax.default_backend() == "tpu"
-        # f32 AND the bf16 serving tier (BF16IO single-pass dots)
-        and dt in (jnp.float32, jnp.bfloat16)
-        and _use_matmul_fft(block_h, block_w)
-        and f <= 16
-        and vh % 8 == 0
-        and vw % 128 == 0
-        # stay inside measured-winning dot territory: narrow cells
-        # (small Wc / short windows) starve the MXU — the v1 lesson
-        and vh >= 32
-        and lwc >= 128
-        and block_conv_fits_vmem(
-            f, block_h, lwc, vh, vw, spec_bytes=dt.itemsize
-        )
-    )
-
-
-def _conv_blocks_unfused(
+@functools.partial(
+    jax.jit,
+    static_argnames=(
+        "block_h", "block_w", "kh", "kw", "out_h", "out_w", "out_dtype",
+    ),
+)
+def conv_blocks(
     d_re: jnp.ndarray,  # (B, nbh, nbw, F, Lh, Lwc)
     d_im: jnp.ndarray,
-    k_re: jnp.ndarray,  # (N, F, Lh, Lwc)
+    k_re: jnp.ndarray,  # (N, F, Lh, Lwc) — at the BLOCK fft size
     k_im: jnp.ndarray,
     block_h: int,
     block_w: int,
@@ -279,21 +221,17 @@ def _conv_blocks_unfused(
     kw: int,
     out_h: int,
     out_w: int,
-    use_pallas: bool | None = None,
     out_dtype: str = "float32",
 ) -> jnp.ndarray:
-    """The unfused three-stage pipeline (MAC → windowed inverse →
-    reassembly) — plain jnp end to end. Serves two roles: the dispatch
-    fallback when the fused Pallas kernel is off/illegal, and the VJP
-    *definition* of the fused kernel (``fused_block_conv``'s backward is
-    this function's transpose — the same pattern as the Pallas MAC,
-    ops/spectral_mac.py `_mac_pallas_ad`).
+    """Spectral MAC per block + inverse FFT + overlap-save reassembly →
+    (B, N, out_h, out_w) linear-convolution maps ('full' window). All
+    spectra are split (re, im) planes; plain jnp end to end, so it is
+    differentiable as it stands.
 
-    ``out_dtype='bfloat16'`` casts the synthesized windows BEFORE the
-    reassembly transpose (XLA fuses the convert into the inverse dots'
-    epilogue): the transpose copy AND the final maps write move half the
-    bytes — the output side is the last f32 traffic term at the bf16
-    serving tier."""
+    ``out_dtype='bfloat16'`` casts the valid windows BEFORE the
+    reassembly transpose (XLA fuses the convert into the inverse's
+    epilogue): the transpose copy and the final maps write move half the
+    bytes (~4e-3 rounding on the scores, the bf16-tier envelope)."""
     from cuda_fft_convolution_tpu.ops.conv import (
         _inverse_precision,
         _use_matmul_fft,
@@ -305,19 +243,15 @@ def _conv_blocks_unfused(
     # Fold (B, nbh, nbw) into one batch axis for the MAC.
     dflat_re = d_re.reshape(b * nbh * nbw, f, lh, lwc)
     dflat_im = d_im.reshape(b * nbh * nbw, f, lh, lwc)
-    p_re, p_im = spectral_mac_auto_planes(
-        dflat_re, dflat_im, k_re, k_im, use_pallas=use_pallas
-    )
+    p_re, p_im = spectral_mac_planes(dflat_re, dflat_im, k_re, k_im)
     if d_re.dtype == jnp.bfloat16:
         # bf16 serving tier: the product SPECTRA store bf16 too (the MAC
-        # accumulated f32; XLA fuses the convert into its epilogue) — the
-        # product round trip and the inverse-DFT dots halve their bytes,
-        # and the inverse accumulates f32 (ops/dft.py bf16 handling).
+        # accumulated f32; XLA fuses the convert into its epilogue).
         p_re, p_im = p_re.astype(jnp.bfloat16), p_im.astype(jnp.bfloat16)
-    if _use_matmul_fft(block_h, block_w):
-        # MXU-DFT inverse synthesizes ONLY each block's valid (non-wrapped)
-        # window — flops and intermediate bytes shrink by the overlap
-        # redundancy factor (L/(L−K+1))², something an FFT cannot do.
+    if _use_matmul_fft():
+        # The matmul-DFT inverse synthesizes ONLY each block's valid
+        # (non-wrapped) window — flops and intermediate bytes shrink by the
+        # overlap redundancy factor (L/(L−K+1))², which an FFT cannot do.
         from cuda_fft_convolution_tpu.ops.dft import irfft2_mm_planes
 
         valid = irfft2_mm_planes(
@@ -338,154 +272,12 @@ def _conv_blocks_unfused(
     return out[:, :, :out_h, :out_w]
 
 
-@functools.partial(jax.custom_vjp, nondiff_argnums=(4, 5, 6, 7, 8, 9, 10))
-def fused_block_conv(
-    d_re: jnp.ndarray,
-    d_im: jnp.ndarray,
-    k_re: jnp.ndarray,
-    k_im: jnp.ndarray,
-    block_h: int,
-    block_w: int,
-    kh: int,
-    kw: int,
-    out_h: int,
-    out_w: int,
-    out_dtype: str = "float32",
-) -> jnp.ndarray:
-    """The fused Pallas block-conv (ops/block_conv.py) made differentiable.
-
-    The forward is bilinear in the (data, kernel) spectra planes; its VJP
-    is *defined* to be the unfused pipeline's (``_conv_blocks_unfused`` —
-    the same linear map computed in plain jnp), so ``jax.grad`` through the
-    auto/tiled engine works on TPU at every fused-dispatch geometry and the
-    gradient agrees with the unfused engine bit-for-fp32. Without this,
-    `jax.grad` would hit an un-differentiable `pallas_call` exactly where
-    production dispatch engages the kernel."""
-    from cuda_fft_convolution_tpu.ops.block_conv import (
-        block_conv_pallas,
-        radix_h_legal,
-        radix_w_enabled,
-        radix_w_xsliver,
-    )
-
-    vh = block_h - kh + 1
-    use_w = radix_w_enabled(
-        block_h, block_w, kh, kw, jnp.dtype(d_re.dtype).itemsize,
-        f=d_re.shape[3],
-    )
-    return block_conv_pallas(
-        d_re, d_im, k_re, k_im, block_h, block_w, kh, kw, out_h, out_w,
-        interpret=jax.default_backend() != "tpu",
-        radix_h=use_w or radix_h_legal(block_h, vh),
-        radix_w=use_w,
-        xsliver=use_w and radix_w_xsliver(
-            block_h, block_w, kw, jnp.dtype(d_re.dtype).itemsize,
-            f=d_re.shape[3],
-        ),
-        out_dtype=out_dtype,
-    )
-
-
-def _fused_block_conv_fwd(
-    d_re, d_im, k_re, k_im, block_h, block_w, kh, kw, out_h, out_w,
-    out_dtype,
-):
-    out = fused_block_conv(
-        d_re, d_im, k_re, k_im, block_h, block_w, kh, kw, out_h, out_w,
-        out_dtype,
-    )
-    return out, (d_re, d_im, k_re, k_im)
-
-
-def _fused_block_conv_bwd(
-    block_h, block_w, kh, kw, out_h, out_w, out_dtype, res, g
-):
-    # The cotangent arrives in out_dtype; the unfused definition carries
-    # the same epilogue cast, so its transpose upcasts g exactly where the
-    # forward downcast (convert_element_type transposes to convert back).
-    d_re, d_im, k_re, k_im = res
-    _, vjp = jax.vjp(
-        lambda a, bb, c, d: _conv_blocks_unfused(
-            a, bb, c, d, block_h, block_w, kh, kw, out_h, out_w,
-            out_dtype=out_dtype,
-        ),
-        d_re, d_im, k_re, k_im,
-    )
-    return vjp(g)
-
-
-fused_block_conv.defvjp(_fused_block_conv_fwd, _fused_block_conv_bwd)
-
-
-@functools.partial(
-    jax.jit,
-    static_argnames=(
-        "block_h", "block_w", "kh", "kw", "out_h", "out_w", "use_pallas",
-        "out_dtype",
-    ),
-)
-def conv_blocks(
-    d_re: jnp.ndarray,  # (B, nbh, nbw, F, Lh, Lwc) f32
-    d_im: jnp.ndarray,
-    k_re: jnp.ndarray,  # (N, F, Lh, Lwc) f32 — at the BLOCK fft size
-    k_im: jnp.ndarray,
-    block_h: int,
-    block_w: int,
-    kh: int,
-    kw: int,
-    out_h: int,
-    out_w: int,
-    use_pallas: bool | None = None,
-    out_dtype: str = "float32",
-) -> jnp.ndarray:
-    """Spectral MAC per block + inverse FFT + overlap-save reassembly →
-    (B, N, out_h, out_w) linear-convolution maps ('full' window). All
-    spectra are split (re, im) f32 planes — complex never exists.
-    Differentiable on BOTH dispatch branches: the fused Pallas kernel runs
-    under a custom VJP whose backward is the unfused pipeline's transpose
-    (``fused_block_conv``). ``out_dtype='bfloat16'`` stores the maps bf16
-    (in-kernel cast on the fused branch, pre-reassembly cast on the
-    unfused one — half the output write traffic and in-flight bytes;
-    ~4e-3 rounding on the scores, the bf16-tier envelope)."""
-    from cuda_fft_convolution_tpu.utils.config import get_config
-
-    b, nbh, nbw, f, lh, lwc = d_re.shape
-    vh, vw = block_h - kh + 1, block_w - kw + 1
-    fused = get_config().use_fused_block_conv
-    if fused is None:
-        # auto: see fused_dispatch_auto (single-sourced with the autotuner)
-        fused = fused_dispatch_auto(f, block_h, block_w, vh, vw, d_re.dtype)
-    if fused and jax.default_backend() == "tpu" and (
-        vh % 8 != 0 or vw % 128 != 0
-    ):
-        # Mosaic requires the output block's trailing dims to be
-        # (8, 128)-aligned; choose_block_fft picks aligned valid windows,
-        # but explicit user blocks may not — fall back to the unfused path.
-        fused = False
-    if fused:
-        # Single Pallas kernel: MAC + windowed inverse-DFT matmuls + direct
-        # clipped writes into the final map layout — nothing between stages
-        # touches HBM and there is no reassembly pass (ops/block_conv.py).
-        # The radix-2 H-stage variant (v4) runs whenever the block/window
-        # geometry allows it — every MXU dot dimension 128-native.
-        return fused_block_conv(
-            d_re, d_im, k_re, k_im, block_h, block_w, kh, kw, out_h, out_w,
-            out_dtype,
-        )
-    return _conv_blocks_unfused(
-        d_re, d_im, k_re, k_im, block_h, block_w, kh, kw, out_h, out_w,
-        use_pallas=use_pallas, out_dtype=out_dtype,
-    )
-
-
 @functools.partial(jax.jit, static_argnames=("out_w_hint",))
 def peaks_from_maps(
     maps: jnp.ndarray, out_w_hint: int | None = None
 ) -> tuple[jnp.ndarray, jnp.ndarray, jnp.ndarray]:
     """(B, N, H, W) maps → per-kernel top-1 ``(vals, ys, xs)`` each (B, N).
-    The XLA fallback detection head: under jit the reduction fuses into the
-    producer's epilogue, so even the unfused pipeline usually avoids a
-    separate maps round-trip."""
+    Under jit the reduction can fuse into the map producer's epilogue."""
     b, n, h, w = maps.shape
     flat = maps.reshape(b, n, h * w)
     idx = jnp.argmax(flat, axis=-1)
@@ -511,52 +303,8 @@ def conv_blocks_peaks(
 ) -> tuple[jnp.ndarray, jnp.ndarray, jnp.ndarray]:
     """Detection head over the overlap-save engine: per-kernel top-1
     ``(vals, ys, xs)`` each (B, N), positions in the output window's frame.
-
-    At fused-dispatch geometries the maps are never written to HBM: the
-    peaks variant of the fused kernel (block_conv_peaks_pallas) reduces
-    each output cell in VMEM to a (max, argmax) pair, and only the
-    (B, N, gbh, gbw) block-max pyramid crosses HBM (~vh·vw/2 fewer output
-    bytes). Elsewhere it reduces the assembled maps in XLA."""
-    from cuda_fft_convolution_tpu.utils.config import get_config
-
-    b, nbh, nbw, f, lh, lwc = d_re.shape
-    vh, vw = block_h - kh + 1, block_w - kw + 1
-    fused = get_config().use_fused_block_conv
-    if fused is None:
-        fused = fused_dispatch_auto(f, block_h, block_w, vh, vw, d_re.dtype)
-    if fused and jax.default_backend() == "tpu" and (
-        vh % 8 != 0 or vw % 128 != 0
-    ):
-        fused = False
-    if fused:
-        from cuda_fft_convolution_tpu.ops.block_conv import (
-            block_conv_peaks_pallas,
-            radix_w_enabled,
-            radix_w_xsliver,
-        )
-
-        use_w = radix_w_enabled(
-            block_h, block_w, kh, kw, jnp.dtype(d_re.dtype).itemsize,
-            f=d_re.shape[3], head="peaks",
-        )
-        vals, idxs = block_conv_peaks_pallas(
-            d_re, d_im, k_re, k_im, block_h, block_w, kh, kw, out_h, out_w,
-            interpret=jax.default_backend() != "tpu",
-            radix_w=use_w,
-            xsliver=use_w and radix_w_xsliver(
-                block_h, block_w, kw, jnp.dtype(d_re.dtype).itemsize,
-                f=d_re.shape[3], head="peaks",
-            ),
-        )
-        n = vals.shape[1]
-        cells = vals.reshape(b, n, -1)
-        ci = jnp.argmax(cells, axis=-1)
-        v = jnp.take_along_axis(cells, ci[..., None], axis=-1)[..., 0]
-        flat = jnp.take_along_axis(
-            idxs.reshape(b, n, -1), ci[..., None], axis=-1
-        )[..., 0]
-        return v, flat // out_w, flat % out_w
-    maps = _conv_blocks_unfused(
+    The assembled maps are reduced in XLA."""
+    maps = conv_blocks(
         d_re, d_im, k_re, k_im, block_h, block_w, kh, kw, out_h, out_w
     )
     return peaks_from_maps(maps)
@@ -638,55 +386,9 @@ def conv_blocks_top_k(
 ) -> tuple[jnp.ndarray, jnp.ndarray, jnp.ndarray]:
     """Top-k detection head over the overlap-save engine: per-kernel
     ``(vals, ys, xs)`` each (B, N, k), values descending, positions in
-    the output window's frame.
-
-    At fused-dispatch geometries the candidates come from the in-VMEM
-    block-max pyramid (one (max, argmax) per output cell — the maps never
-    touch HBM): the result is the top k CELL MAXIMA, i.e. an approximate
-    top-k whose candidates are spatially distinct (at most one per
-    (MBH·Vh, MBW·Vw) cell — a built-in coarse non-max suppression;
-    exact for k = 1). When k exceeds the cell count, or on the unfused
-    path, the assembled maps are reduced with an EXACT lax.top_k."""
-    from cuda_fft_convolution_tpu.utils.config import get_config
-
-    b, nbh, nbw, f, lh, lwc = d_re.shape
-    vh, vw = block_h - kh + 1, block_w - kw + 1
-    fused = get_config().use_fused_block_conv
-    if fused is None:
-        fused = fused_dispatch_auto(f, block_h, block_w, vh, vw, d_re.dtype)
-    if fused and jax.default_backend() == "tpu" and (
-        vh % 8 != 0 or vw % 128 != 0
-    ):
-        fused = False
-    if fused:
-        from cuda_fft_convolution_tpu.ops.block_conv import (
-            block_conv_peaks_pallas,
-            radix_w_enabled,
-            radix_w_xsliver,
-        )
-
-        use_w = radix_w_enabled(
-            block_h, block_w, kh, kw, jnp.dtype(d_re.dtype).itemsize,
-            f=d_re.shape[3], head="peaks",
-        )
-        vals, idxs = block_conv_peaks_pallas(
-            d_re, d_im, k_re, k_im, block_h, block_w, kh, kw, out_h, out_w,
-            interpret=jax.default_backend() != "tpu",
-            radix_w=use_w,
-            xsliver=use_w and radix_w_xsliver(
-                block_h, block_w, kw, jnp.dtype(d_re.dtype).itemsize,
-                f=d_re.shape[3], head="peaks",
-            ),
-        )
-        n = vals.shape[1]
-        cells = vals.reshape(b, n, -1)
-        if cells.shape[-1] >= k:  # static: falls through when too few cells
-            kv, ki = jax.lax.top_k(cells, k)
-            flat = jnp.take_along_axis(
-                idxs.reshape(b, n, -1), ki, axis=-1
-            )
-            return kv, flat // out_w, flat % out_w
-    maps = _conv_blocks_unfused(
+    the output window's frame — an EXACT lax.top_k over the assembled
+    maps."""
+    maps = conv_blocks(
         d_re, d_im, k_re, k_im, block_h, block_w, kh, kw, out_h, out_w
     )
     return top_k_from_maps(maps, k)

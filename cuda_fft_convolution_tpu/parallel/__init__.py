@@ -1,11 +1,12 @@
 """Multi-device layer: device meshes + sharded bank convolution.
 
-TPU-native replacement for the reference's experimental multi-GPU path
+Replacement for the reference's experimental multi-GPU path
 (src/cudaConvFFTDataStreams.cu): where the reference peer-copies the data FFT
 to each GPU (cudaMemcpyPeerAsync :282) and round-robins kernels over
 GPU×stream slots (:338-469), here a ``jax.sharding.Mesh`` carries the same
-strategy declaratively — data spectrum replicated over ICI, kernel bank
-sharded — and scales to multi-host over DCN with no code change.
+strategy declaratively — data spectrum replicated to every card (XLA hands
+the broadcast to NCCL over NVLink), kernel bank sharded — and scales to
+several hosts with no code change.
 """
 
 from cuda_fft_convolution_tpu.parallel.mesh import (

@@ -1,6 +1,6 @@
 """Sharded filter-bank convolution over a device mesh.
 
-Strategy (the reference's multi-GPU intent, done the TPU way — SURVEY.md §2
+Strategy (the reference's multi-GPU intent, done declaratively — SURVEY.md §2
 parallelism table + §5 "distributed communication backend"):
 
   - **kernel axis**: the filter bank (N axis) is sharded across devices —
@@ -10,14 +10,14 @@ parallelism table + §5 "distributed communication backend"):
     classic data parallelism (no reference analogue; it is single-image).
   - The data spectrum is *replicated* along the kernel axis — what the
     reference does imperatively with cudaMemcpyPeerAsync (:279-289), XLA
-    expresses as an all-gather/broadcast over ICI inserted automatically
-    from the sharding specs.
+    expresses as a broadcast inserted automatically from the sharding
+    specs and hands to NCCL (NVLink between the cards of one host).
 
-Each device then runs the identical single-device program (fused spectral
-MAC + inverse FFT) on its bank shard; results come back sharded over
+Each device then runs the identical single-device program (spectral MAC +
+inverse FFT) on its bank shard; results come back sharded over
 (data, kernels) with zero cross-device math — bank convolution is
 embarrassingly parallel over kernels, so scaling is linear in devices as
-long as the replicated data FFT fits HBM.
+long as the replicated data FFT fits device memory.
 
 Serving-grade dispatch: the jitted shard_map executable is CACHED, keyed on
 (mesh, engine, static geometry) — repeat calls with same-shaped inputs are
@@ -33,12 +33,12 @@ import functools
 
 import jax
 import jax.numpy as jnp
-from jax.experimental import mesh_utils
+import numpy as np
 from jax.sharding import Mesh, NamedSharding, PartitionSpec as P
 
 from cuda_fft_convolution_tpu import api as _api
 from cuda_fft_convolution_tpu.ops.conv import irfft2_norm_planes
-from cuda_fft_convolution_tpu.ops.spectral_mac import spectral_mac_auto_planes
+from cuda_fft_convolution_tpu.ops.spectral_mac import spectral_mac_planes
 from cuda_fft_convolution_tpu.ops.tiled import conv_blocks
 from cuda_fft_convolution_tpu.types import (
     SpectralData,
@@ -63,7 +63,9 @@ def make_mesh(
 ) -> Mesh:
     """Build a (data, kernels) mesh. ``kernels=None`` → use all remaining
     devices on the kernel axis (bank sharding is the primary scaling axis
-    for this workload, as in the reference's kernel round-robin)."""
+    for this workload, as in the reference's kernel round-robin). Devices
+    are laid out in the given order: the cards of one GPU host reach each
+    other all to all over NVLink, so the order carries no topology."""
     if devices is None:
         devices = jax.devices()
     n = len(devices)
@@ -74,7 +76,7 @@ def make_mesh(
         data * kernels == n,
         f"mesh {data}x{kernels} != {n} available devices",
     )
-    dev_mesh = mesh_utils.create_device_mesh((data, kernels), devices=devices)
+    dev_mesh = np.asarray(devices, dtype=object).reshape(data, kernels)
     return Mesh(dev_mesh, (DATA_AXIS, KERNEL_AXIS))
 
 
@@ -127,7 +129,6 @@ def _sharded_conv_exec(
     ndim_d: int,
     tiled: bool,
     geom: tuple,
-    use_pallas: bool | None,
     chunk: int | None = None,
     out_dtype: str = "float32",
 ):
@@ -157,7 +158,7 @@ def _sharded_conv_exec(
             outs = [
                 conv_blocks(
                     d_re, d_im, k_re[s : s + step], k_im[s : s + step],
-                    bh, bw, mkh, mkw, oh, ow, use_pallas,
+                    bh, bw, mkh, mkw, oh, ow,
                     out_dtype=out_dtype,
                 )
                 for s in range(0, ln, step)
@@ -171,18 +172,15 @@ def _sharded_conv_exec(
             # device's (batch-shard × bank-shard) block. No collectives —
             # bank convolution is embarrassingly parallel once the data
             # spectrum is in place; the replication of the data planes along
-            # the kernel axis is expressed by their PartitionSpec and rides
-            # ICI.
+            # the kernel axis is expressed by their PartitionSpec.
             ln = k_re.shape[0]
             if chunk is not None and chunk < ln:
                 maps = _api._conv_from_spectra_chunked(
-                    d_re, d_im, k_re, k_im, fft_h, fft_w, use_pallas,
+                    d_re, d_im, k_re, k_im, fft_h, fft_w,
                     max(1, chunk),
                 )
             else:
-                p_re, p_im = spectral_mac_auto_planes(
-                    d_re, d_im, k_re, k_im, use_pallas=use_pallas
-                )
+                p_re, p_im = spectral_mac_planes(d_re, d_im, k_re, k_im)
                 maps = irfft2_norm_planes(p_re, p_im, fft_h, fft_w)
             if out_dtype != "float32":
                 maps = maps.astype(jnp.dtype(out_dtype))
@@ -204,13 +202,13 @@ def _sharded_stream_exec(
     ndim_d: int,
     fft_h: int,
     fft_w: int,
-    use_pallas: bool | None,
     chunk: int,
     correlation: bool,
 ):
     """Streaming-spatial sharded executable: each device holds its SPATIAL
     kernel shard (tiny) and transforms/MACs/inverts it in ``chunk``-kernel
-    slices — per-device peak HBM = data spectra + output maps + one chunk.
+    slices — per-device peak memory = data spectra + output maps + one
+    chunk.
     The sharded analogue of api._conv_spectral_streaming_spatial, for banks
     whose resident spectra exceed even a per-device budget (the regime the
     reference's per-kernel loop lives in, src/cudaConvFFTData.cu:191-282)."""
@@ -221,7 +219,7 @@ def _sharded_stream_exec(
 
     def _local_conv(d_re, d_im, kstack):
         return _api._conv_from_spatial_chunked(
-            d_re, d_im, kstack, fft_h, fft_w, use_pallas, chunk, correlation
+            d_re, d_im, kstack, fft_h, fft_w, chunk, correlation
         )
 
     return jax.jit(
@@ -241,7 +239,6 @@ def conv_spectral_sharded(
     *,
     mode: str = "fftmap",
     correlation: bool = False,
-    use_pallas: bool | None = None,
     same_offset: str = "scipy",
     out_dtype: str | None = None,
 ):
@@ -258,7 +255,7 @@ def conv_spectral_sharded(
     spectrum).
 
     Memory planning mirrors the single-device path, per device: each
-    device's shard is planned against the HBM budget (runtime/planner.py)
+    device's shard is planned against the memory budget (runtime/planner.py)
     and runs chunked when the whole shard wouldn't fit; raw giant banks
     whose resident spectra exceed half the per-device budget never
     materialize spectra at all — the spatial kernels are sharded and each
@@ -308,7 +305,7 @@ def conv_spectral_sharded(
                 return _conv_sharded_streaming(
                     spectral, kstack, khs, kws, mesh,
                     mode=mode, correlation=correlation,
-                    use_pallas=use_pallas, same_offset=same_offset,
+                    same_offset=same_offset,
                     budget=budget,
                 )
         sk = _api.fft_kernels(
@@ -412,7 +409,7 @@ def conv_spectral_sharded(
     k_re, k_im = _placed(k_re, ksh), _placed(k_im, ksh)
 
     exec_fn = _sharded_conv_exec(
-        mesh, d_re.ndim, tiled, geom, use_pallas, chunk,
+        mesh, d_re.ndim, tiled, geom, chunk,
         out_dtype=out_dtype or "float32",
     )
     maps = exec_fn(d_re, d_im, k_re, k_im)[:, :n]
@@ -427,7 +424,7 @@ def _sharded_peaks_exec(
     mesh: Mesh, ndim_d: int, geom: tuple, k: int | None = None
 ):
     """Jitted shard_map executable for the sharded detection head: each
-    device runs the fused peaks pipeline (ops/tiled.conv_blocks_peaks,
+    device runs the peaks pipeline (ops/tiled.conv_blocks_peaks,
     or conv_blocks_top_k when ``k``) on its LOCAL bank shard — per-kernel
     detections are independent per kernel, so the head needs ZERO
     cross-device math; results come back sharded over (data, kernels)
@@ -482,13 +479,11 @@ def detect_peaks_sharded(
     block spectra replicated along it (batch sharded over the data axis) —
     ``detect_peaks`` × ``conv_spectral_sharded`` composed.
 
-    The serving win compounds across devices: each device reduces its bank
-    shard's score maps IN VMEM (the maps never exist in HBM at fused
-    geometries) and contributes only a (B_local, N_local) peak tuple —
-    there is no cross-device collective at all, and the gathered result is
-    ~4 orders of magnitude smaller than the sharded maps
-    ``conv_spectral_sharded`` would return (bench: fetching one device's
-    full maps through a serving link measures in minutes; peaks in ms).
+    Each device reduces its bank shard's score maps on the device and
+    contributes only a (B_local, N_local) peak tuple — there is no
+    cross-device collective at all, and the gathered result is ~4 orders
+    of magnitude smaller than the sharded maps ``conv_spectral_sharded``
+    would return.
 
     ``spectral`` must be a :class:`TiledSpectralData` with a baked
     'same'/'valid' window (the peaks frame; fft_data_tiled
@@ -500,9 +495,9 @@ def detect_peaks_sharded(
     frame, identical to single-device ``detect_peaks``.
 
     ``k`` (optional) switches the head to top-k per kernel — same
-    semantics as :func:`models.detect_top_k` (exact on the unfused path,
-    cell maxima at fused geometries), each device reducing its own bank
-    shard: ``values`` (..., N, k), ``positions`` (..., N, k, 2)."""
+    semantics as :func:`models.detect_top_k` (exact), each device reducing
+    its own bank shard: ``values`` (..., N, k), ``positions``
+    (..., N, k, 2)."""
     validate(
         isinstance(spectral, TiledSpectralData),
         "detect_peaks_sharded takes TiledSpectralData (the peaks head is "
@@ -586,7 +581,6 @@ def _conv_sharded_streaming(
     *,
     mode: str,
     correlation: bool,
-    use_pallas: bool | None,
     same_offset: str,
     budget: int,
 ):
@@ -622,19 +616,14 @@ def _conv_sharded_streaming(
     local_b = b // dshards
     # per-device chunk size: same memory model as the single-device
     # streaming path (api._conv_spectral_streaming_spatial), on the shard
-    h_pad = -(-spectral.fft_h // 8) * 8
-    wc_pad = -(-(spectral.fft_w // 2 + 1) // 128) * 128
-    w_pad = -(-spectral.fft_w // 128) * 128
+    spec = spectral.fft_h * (spectral.fft_w // 2 + 1)  # spectral pixels
+    pix = spectral.fft_h * spectral.fft_w
     fixed = (
-        8 * local_b * f * h_pad * wc_pad
-        + 4 * local_b * local_n * h_pad * w_pad
+        8 * local_b * f * spec
+        + 4 * local_b * local_n * pix
         + kstack.size * 4 // kshards
     )
-    per_k = 2 * (
-        8 * f * h_pad * wc_pad
-        + 8 * local_b * h_pad * wc_pad
-        + 8 * local_b * h_pad * w_pad
-    )
+    per_k = 2 * (8 * f * spec + 8 * local_b * spec + 8 * local_b * pix)
     chunk = int(max(1, min(local_n, max(budget - fixed, per_k) // per_k)))
 
     dspec = P(*([DATA_AXIS] + [None] * (d_re.ndim - 1)))
@@ -644,7 +633,7 @@ def _conv_sharded_streaming(
     kstack = _placed(kstack, ksh)
 
     exec_fn = _sharded_stream_exec(
-        mesh, d_re.ndim, spectral.fft_h, spectral.fft_w, use_pallas, chunk,
+        mesh, d_re.ndim, spectral.fft_h, spectral.fft_w, chunk,
         correlation,
     )
     maps = exec_fn(d_re, d_im, kstack)[:, :n]

@@ -1,6 +1,6 @@
 """Runtime layer: native planner + ahead-of-time compiled execution plans.
 
-TPU-native replacement for the reference's host runtime: the MEX glue that
+Replacement for the reference's host runtime: the MEX glue that
 sizes FFTs, creates cuFFT plans, and allocates buffers per call
 (src/cudaConvolutionFFT.cu:103-163), and the streams variant's hand-built
 execution schedule (src/cudaConvFFTDataStreams.cu:273-328). Here:

@@ -19,7 +19,7 @@ _LOCK = threading.Lock()
 _LIB = None
 _TRIED = False
 
-_ABI_VERSION = 4
+_ABI_VERSION = 5
 
 
 def _csrc_dir() -> str:
@@ -83,8 +83,6 @@ def _bind(lib):
     lib.ffc_next_pow2.argtypes = [c64]
     lib.ffc_next_fast_len.restype = c64
     lib.ffc_next_fast_len.argtypes = [c64]
-    lib.ffc_next_fast_len_aligned.restype = c64
-    lib.ffc_next_fast_len_aligned.argtypes = [c64, c64]
     lib.ffc_compute_fft_size.restype = None
     lib.ffc_compute_fft_size.argtypes = [
         c64, c64, c64, c64, ctypes.c_int32,
@@ -95,12 +93,6 @@ def _bind(lib):
         c64, c64, c64, c64, c64, c64, c64,
         ctypes.POINTER(c64), ctypes.POINTER(c64),
     ]
-    lib.ffc_block_conv_vmem_bytes.restype = c64
-    lib.ffc_block_conv_vmem_bytes.argtypes = [
-        c64, c64, c64, c64, c64, c64, ctypes.c_int32, c64, c64,
-    ]
-    lib.ffc_block_conv_fits_vmem.restype = ctypes.c_int32
-    lib.ffc_block_conv_fits_vmem.argtypes = [c64, c64, c64, c64, c64, c64]
     lib.ffc_choose_block_fft.restype = ctypes.c_int32
     lib.ffc_choose_block_fft.argtypes = [
         c64, c64, c64, c64, ctypes.c_int32, c64,

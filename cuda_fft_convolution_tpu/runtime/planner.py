@@ -19,7 +19,6 @@ _POLICY_CODE = {
     FftSizePolicy.MULTIPLE16: 0,
     FftSizePolicy.POW2: 1,
     FftSizePolicy.FAST: 2,
-    FftSizePolicy.TPU: 3,
 }
 
 
@@ -52,7 +51,7 @@ class BankPlan:
 
     chunk_size: kernels per pipelined chunk (the generalization of the
       streams variant's one-kernel-per-stream slots).
-    peak_bytes: estimated HBM working set at that chunk size.
+    peak_bytes: estimated device-memory working set at that chunk size.
     """
 
     chunk_size: int
@@ -69,7 +68,7 @@ def plan_bank(
     store_bytes: int = 4,
 ) -> BankPlan:
     """Choose the pipeline chunk size so one chunk's spectra + products +
-    output maps (double-buffered) fit the HBM budget.
+    output maps (double-buffered) fit the memory budget.
 
     ``store_bytes``: per-element width of the stored spectra (4 = f32 tier,
     2 = the bf16 serving tier — data/bank/product spectra all halve; output
@@ -84,12 +83,9 @@ def plan_bank(
         return BankPlan(int(chunk.value), int(peak.value))
     # Pure-Python fallback — same arithmetic as csrc/planner.cpp:ffc_plan_bank.
     wc = fft_w // 2 + 1
-    # PADDED bytes — TPU HBM tiles f32 as (8, 128) on the trailing dims; a
-    # (540, 271) plane occupies (544, 384), 1.43x nominal (measured OOMs
-    # with the nominal model). csrc/planner.cpp keeps in sync.
-    h_pad = -(-fft_h // 8) * 8
-    spec = h_pad * (-(-wc // 128) * 128) * 2 * store_bytes
-    map_bytes = h_pad * (-(-fft_w // 128) * 128) * 4
+    # Nominal bytes (csrc/planner.cpp keeps in sync).
+    spec = fft_h * wc * 2 * store_bytes
+    map_bytes = fft_h * fft_w * 4
     # Fixed: data spectra + input + RESIDENT bank spectra + full output maps.
     fixed = (
         batch * feature_dim * spec
@@ -99,18 +95,9 @@ def plan_bank(
     )
     budget = hbm_budget_bytes - fixed
     # Unchunked per-kernel cost: products + inverse scratch. For F > 1 keep
-    # bank/16 slack for MAC fusion failures: the F-contraction einsum was
-    # once modeled as a full bank-sized relayout copy, but the whole-bank
-    # MAC at the F=31, N=224, 11.6 GB-padded-bank config measured RUNNING
-    # unchunked within 2.4 GB of real slack (perf/diag_dpm.py
-    # mac256_einsum) — the full-bank allowance forced a chunked plan that
-    # was 6-12x slower than the unchunked pass it prohibited. The /16
-    # slack is validated on a SECOND F>1 geometry (perf/validate_planner.py:
-    # F=8, N=177 at fft 1080² planned to 14.08 of a 14.13 GiB budget —
-    # ran unchunked at the edge without OOM).
-    # Prefer unchunked whenever it fits (a chunked lax.map pays a
-    # bank-slice copy per chunk; chunk_size=1 measured 30x slower on the
-    # 9.3 GB-bank config). csrc/planner.cpp keeps in sync.
+    # bank/16 slack for the F-contraction's operand relayouts. Prefer
+    # unchunked whenever it fits (a chunked lax.map pays a bank-slice copy
+    # per chunk). csrc/planner.cpp keeps in sync.
     per_unchunked = 2 * (batch * spec + 2 * batch * map_bytes)
     unchunked_extra = (
         (n_kernels * feature_dim * spec) // 16 if feature_dim > 1 else 0
@@ -120,8 +107,7 @@ def plan_bank(
             int(n_kernels),
             int(fixed + n_kernels * per_unchunked + unchunked_extra),
         )
-    # Slice copy + its F-contraction relayout (F > 1) per kernel; a chunk
-    # of 42 with a single-copy model OOM'd on hardware.
+    # Slice copy + its F-contraction relayout (F > 1) per kernel.
     slice_copies = (
         2 * feature_dim * spec if feature_dim > 1 else feature_dim * spec
     )

@@ -1,6 +1,6 @@
 """Utility layer: FFT-size policies, validation errors, logging, profiling.
 
-TPU-native replacement of the reference's host utility header
+Replacement of the reference's host utility header
 (src/cudaConvFFTData.h: error macros, iDivUp/iAlignUp grid math,
 computeFFTsize/computeFFTsize16 policies).
 """

@@ -5,9 +5,8 @@ constants (SURVEY.md §5: thread-dim 4-vectors, GPU id, `static bool debug`,
 FFT-size policy chosen by editing the source). Here it is one runtime
 config object with env-var overrides:
 
-  FFTCONV_POLICY        default FFT-size policy (multiple16|pow2|fast|tpu)
-  FFTCONV_USE_PALLAS    1/0 force the Pallas MAC on/off ('' = auto)
-  FFTCONV_HBM_FRACTION  fraction of device HBM the bank planner may use
+  FFTCONV_POLICY        default FFT-size policy (multiple16|pow2|fast)
+  FFTCONV_HBM_FRACTION  fraction of device memory the bank planner may use
   FFTCONV_CHUNK         fixed pipeline chunk size ('' = planner decides)
   FFTCONV_DEBUG         1 = debug logging (utils/logging.py)
 """
@@ -35,54 +34,32 @@ def _env_int(name: str) -> int | None:
 @dataclasses.dataclass
 class Config:
     policy: FftSizePolicy = FftSizePolicy.FAST
-    use_pallas: bool | None = None  # None = auto per backend/size
-    # Fraction of allocatable HBM the planners may budget. The planners
-    # count RESIDENT tensors precisely in their padded HBM layout, so this
-    # only covers untracked transients: 0.92 measured safe on v5e (the
-    # 11.6 GB-bank + chunk-13 giant-bank config runs inside 15 GiB), while
-    # 0.75 starved that config to chunk_size=1 — a 6x slowdown (2.8 s vs
-    # ~0.5 s measured).
+    # Fraction of the device memory budget the planners may use. The
+    # planners count RESIDENT tensors at their nominal bytes, so this only
+    # covers untracked transients.
     hbm_fraction: float = 0.92
-    # Absolute HBM budget override (bytes). None = derive from the device
-    # (memory_stats / device-kind table) × hbm_fraction. Set explicitly for
-    # deterministic planning in tests and heterogeneous fleets.
+    # Absolute memory budget override (bytes). None = derive from the
+    # device (memory_stats()["bytes_limit"]) × hbm_fraction. Set explicitly
+    # for deterministic planning in tests and heterogeneous fleets.
     hbm_budget_bytes: int | None = None
     chunk_size: int | None = None  # None = planner decides
-    # Transform engine: None = auto (MXU-DFT matmuls on TPU up to the size
-    # cap, XLA FFT otherwise). 'matmul_precision' applies to the DFT
-    # matmuls: 'highest' (fp32-exact, default) | 'high' | 'default'.
+    # Transform engine: None/False = XLA FFT (cuFFT on the GPU); True = the
+    # dense matmul-DFT engine (ops/dft.py), opt-in on every backend.
+    # 'matmul_precision' applies to its DFT matmuls: 'highest' (fp32-exact,
+    # default) | 'high' | 'default'.
     use_matmul_fft: bool | None = None
     matmul_precision: str = "highest"
-    # Precision tier for the UNFUSED pipeline's inverse-synthesis dots
-    # (irfft2_norm_planes / the tiled windowed inverse). 'high' is XLA's
-    # 3-pass split-bf16 (56 TF/s measured vs HIGHEST's 31) — the XLA-side
-    # twin of the fused kernel's bf16x3 — and is a measured 1.5–2× on
-    # inverse-dominated configs (512² kernels: 43.0 vs ~40-series ms/call,
-    # perf/diag_high_prec.py). It is OPT-IN, not the default: on-device
-    # error at the big-kernel scenario (1023² inverse synthesis) measured
-    # 2.07e-5 — OVER the library's ≤1e-5 bar (the numpy emulation that
-    # predicted ~5e-6 underestimated; split-bf16 error grows with
-    # contraction length, and unfused transforms are unbounded in size,
-    # unlike the fused kernel's VMEM-capped ≤512 blocks where bf16x3
-    # measures 6.7e-6). Default 'highest' keeps every default path
-    # fp32-exact (~2e-7).
+    # Precision of the matmul-DFT engine's inverse-synthesis dots (the
+    # tiled windowed inverse). Only 'highest' holds the library's ≤1e-5
+    # fp32 bar on the GPU: there 'high' and 'default' run f32 dots in
+    # TF32, which keeps about 3 decimal digits. The same holds for
+    # 'matmul_precision'.
     inverse_precision: str = "highest"
-    # Fused Pallas block-conv kernel (ops/block_conv.py): MAC + windowed
-    # inverse-DFT matmuls in one VMEM pass. None = auto (off pending
-    # per-backend measurement), True/False force.
-    use_fused_block_conv: bool | None = None
-    # Dot precision INSIDE the fused kernel: 'bf16x3' (manual split-bf16
-    # 3-pass ≈ XLA HIGH — half the HIGHEST MXU time; measured on v5e:
-    # headline 65.0 → 49.5 ms at max rel err 6.7e-6 vs the f64 oracle,
-    # inside the ≤1e-5 bar) or 'highest' (6-pass bf16, fp32-exact,
-    # 2.7e-7) for maximum-accuracy deployments.
-    fused_precision: str = "bf16x3"
 
     @classmethod
     def from_env(cls) -> "Config":
         return cls(
             policy=FftSizePolicy(os.environ.get("FFTCONV_POLICY", "fast")),
-            use_pallas=_env_bool("FFTCONV_USE_PALLAS"),
             hbm_fraction=float(os.environ.get("FFTCONV_HBM_FRACTION", "0.92")),
             hbm_budget_bytes=_env_int("FFTCONV_HBM_BUDGET_BYTES"),
             chunk_size=_env_int("FFTCONV_CHUNK"),
@@ -90,10 +67,6 @@ class Config:
             matmul_precision=os.environ.get("FFTCONV_MATMUL_PRECISION", "highest"),
             inverse_precision=os.environ.get(
                 "FFTCONV_INVERSE_PRECISION", "highest"
-            ),
-            use_fused_block_conv=_env_bool("FFTCONV_FUSED_BLOCK_CONV"),
-            fused_precision=os.environ.get(
-                "FFTCONV_FUSED_PRECISION", "bf16x3"
             ),
         )
 
@@ -113,11 +86,11 @@ def register_jit_consumer(fn) -> None:
 def invalidate_jit_consumers() -> None:
     """Clear every registered jitted consumer's executable cache.
 
-    For dispatch-table mutations (measured-plan registration: radix_w
-    plans, fused groups) that are read at TRACE time by jitted workers:
-    clearing only the leaf kernel wrapper is not enough — an outer jitted
-    caller (e.g. ops.tiled.conv_blocks) inlines the leaf at trace time
-    and would keep serving the stale dispatch from its own cache."""
+    For dispatch-table mutations (tuned-geometry registration) that are
+    read at TRACE time by jitted workers: clearing only the leaf wrapper is
+    not enough — an outer jitted caller (e.g. ops.tiled.conv_blocks)
+    inlines the leaf at trace time and would keep serving the stale
+    dispatch from its own cache."""
     for fn in _JIT_CONSUMERS:
         try:
             fn.clear_cache()
@@ -130,7 +103,7 @@ def get_config() -> Config:
 
 
 def set_config(**kwargs) -> Config:
-    """Update global defaults, e.g. ``set_config(policy='tpu')``."""
+    """Update global defaults, e.g. ``set_config(policy='pow2')``."""
     global _CONFIG
     updates = dict(kwargs)
     if "policy" in updates:
@@ -138,7 +111,6 @@ def set_config(**kwargs) -> Config:
     _CONFIG = dataclasses.replace(_CONFIG, **updates)
     if {
         "use_matmul_fft", "matmul_precision", "inverse_precision",
-        "use_pallas", "use_fused_block_conv", "fused_precision",
     } & set(updates):
         for fn in _JIT_CONSUMERS:
             try:

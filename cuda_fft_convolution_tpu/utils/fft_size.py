@@ -3,11 +3,9 @@
 The reference picks FFT dims as ``round_up_to_16(data + max_kernel - 1)``
 (src/cudaConvFFTData.h:96 ``computeFFTsize16``; call site
 src/cudaConvolutionFFT.cu:109-110) with a legacy pow-2 policy
-(``computeFFTsize`` :67, commented out at call sites). On TPU the policy is
-pluggable (SURVEY.md §7 hard-part (d)): XLA's FFT is fastest for sizes whose
-factors are small primes, and the surrounding elementwise/Pallas work prefers
-lane-aligned (multiples of 128) trailing dims and sublane-aligned (multiples
-of 8) second-to-last dims.
+(``computeFFTsize`` :67, commented out at call sites). Here the policy is
+pluggable (SURVEY.md §7 hard-part (d)): XLA's FFT (cuFFT on the GPU) is
+fastest for sizes whose factors are small primes.
 
 When the native C++ planner extension is built (runtime/planner.cpp), its
 implementations are used; this module is the always-available pure-Python
@@ -55,8 +53,7 @@ def next_pow2(n: int) -> int:
 def next_fast_len(n: int, primes: tuple = (2, 3, 5)) -> int:
     """Smallest integer >= n that factors entirely into ``primes``.
 
-    XLA's FFT (like FFTW/cuFFT) is fast for 5-smooth sizes; this is the
-    TPU-friendly analogue of cuFFT's preferred sizes.
+    XLA's FFT (like FFTW/cuFFT) is fast for 5-smooth sizes.
     """
     n = max(int(n), 1)
     if n <= max(primes):
@@ -74,29 +71,17 @@ def next_fast_len(n: int, primes: tuple = (2, 3, 5)) -> int:
     return m
 
 
-def next_fast_len_aligned(n: int, align: int) -> int:
-    """Smallest 5-smooth integer >= n that is also a multiple of ``align``.
-
-    ``align`` must itself be 5-smooth (8, 16, 128 all are): then the result
-    is ``align * next_fast_len(ceil(n/align))``.
-    """
-    return align * next_fast_len(ceil_div(n, align))
-
-
 class FftSizePolicy(str, enum.Enum):
     """How to round ``data + max_kernel - 1`` up to the FFT size.
 
     MULTIPLE16  — reference parity (computeFFTsize16).
     POW2        — legacy reference policy (computeFFTsize).
     FAST        — next 5-smooth size (XLA-FFT friendly).
-    TPU         — 5-smooth AND aligned: H to sublane multiple (8),
-                  W to lane multiple (128). Best for Pallas post-processing.
     """
 
     MULTIPLE16 = "multiple16"
     POW2 = "pow2"
     FAST = "fast"
-    TPU = "tpu"
 
 
 def compute_fft_size(
@@ -119,13 +104,4 @@ def compute_fft_size(
         return next_multiple_of_16(need_h), next_multiple_of_16(need_w)
     if policy is FftSizePolicy.POW2:
         return next_pow2(need_h), next_pow2(need_w)
-    if policy is FftSizePolicy.FAST:
-        return next_fast_len(need_h), next_fast_len(need_w)
-    # TPU: sublane-align H (8 for fp32), lane-align W (128) — but never let
-    # alignment more than double a tiny dim's padded size pointlessly: for
-    # very small W the 128 alignment dominates; that is intentional, the
-    # whole array still has to live in (8,128) tiles on chip.
-    return (
-        next_fast_len_aligned(need_h, 8),
-        next_fast_len_aligned(need_w, 128),
-    )
+    return next_fast_len(need_h), next_fast_len(need_w)

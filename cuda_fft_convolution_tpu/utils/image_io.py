@@ -1,6 +1,6 @@
 """PGM/PPM image I/O and array comparison helpers.
 
-TPU-native equivalents of the reference's vendored NVIDIA helpers that the
+Equivalents of the reference's vendored NVIDIA helpers that the
 detection workflow actually needs: PGM load/save (≈ sdkLoadPGM/sdkSavePGM,
 common/helper_image.h:227; cutLoadPGMf, src/cutil.h:294-368) and tolerance
 comparison (≈ cutComparef / sdkCompareL2fe, src/cutil.h:545,

@@ -1,31 +1,16 @@
-"""Host↔device transfer helpers.
+"""Host↔device transfer helper.
 
 The reference crosses the host/device boundary explicitly (H2D data copy
 src/cudaConvolutionFFT.cu:148, per-kernel D2H :284-286); in JAX transfers are
-implicit — EXCEPT that some TPU runtimes cannot DMA complex64 buffers to the
-host directly (observed on the v5e runtime used here: raw complex D2H raises
-UNIMPLEMENTED and can poison the process). All public outputs of this library
-are real, so users normally never hit this; ``fetch`` is the safe escape
-hatch for pulling spectra (e.g. ``SpectralData.fft``) to numpy by splitting
-into re/im planes on device first.
+implicit. ``fetch`` pulls any library output — real maps or complex spectra
+such as ``SpectralData.fft`` — to numpy.
 """
 
 from __future__ import annotations
 
-import jax
-import jax.numpy as jnp
 import numpy as np
 
 
-@jax.jit
-def _split(x):
-    return jnp.real(x), jnp.imag(x)
-
-
 def fetch(x) -> np.ndarray:
-    """Device→host copy that is safe for complex arrays on all backends."""
-    x = jnp.asarray(x)
-    if not jnp.issubdtype(x.dtype, jnp.complexfloating):
-        return np.asarray(x)
-    r, i = _split(x)
-    return np.asarray(r) + 1j * np.asarray(i)
+    """Device→host copy of ``x`` as a numpy array."""
+    return np.asarray(x)

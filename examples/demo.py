@@ -1,6 +1,6 @@
 #!/usr/bin/env python
 """End-to-end demo — the port of demoCudaConvolutionFFT.m
-(/root/reference/demoCudaConvolutionFFT.m), with its visual checks turned
+(the reference's demoCudaConvolutionFFT.m), with its visual checks turned
 into printed assertions.
 
 Walks the exact reference scenario:

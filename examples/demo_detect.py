@@ -4,20 +4,19 @@ WITHOUT materializing score maps, plus heterogeneous serving through
 ``RaggedConvStream``.
 
 The reference library's own demo validates by PEAK LOCATION
-(/root/reference/demoCudaConvolutionFFT.m:58-61) yet its pipeline always
-writes every full score map; this demo exercises the round-4 consumers:
+(the reference's demoCudaConvolutionFFT.m:58-61) yet its pipeline always
+writes every full score map; this demo exercises the detection consumers:
 
   1. plant K templates at known positions in a noisy image;
-  2. ``detect_peaks`` (per-kernel top-1 over the correlation scores — at
-     fused geometries the maps never touch HBM, only a block-max pyramid
-     does) must recover every planted position exactly;
+  2. ``detect_peaks`` (per-kernel top-1 over the correlation scores,
+     reduced on the device — only (N,) values and positions leave it)
+     must recover every planted position exactly;
   3. the same bank served as a heterogeneous CELL LIST through
      ``RaggedConvStream`` (per-shape AOT plans under one facade) matches
      the one-shot ``fft_conv`` maps;
   4. peaks are cross-checked against argmaxing the full maps.
 
-CPU-safe (runs in seconds); on TPU the fused peaks kernel engages
-automatically at aligned plans.
+CPU-safe (runs in seconds).
 """
 
 import os

@@ -4,7 +4,7 @@ inputs, fp32 spectral accumulation, large HOG filter bank on big imagery).
 
 Pipeline: image → HOG features → planner-chunked correlation of a large
 filter bank against one precomputed feature spectrum → top detections.
-Defaults are smoke-test sized; pass TPU-scale dims, e.g.:
+Defaults are smoke-test sized; pass full-size dims on a GPU, e.g.:
 
     python examples/demo_dpm.py --height 4096 --width 4096 --filters 1000
 """
@@ -66,8 +66,7 @@ jax.block_until_ready(scores)
 
 t0 = time.perf_counter()
 scores = fc.conv_spectral_pipelined(sd, sk, mode="same")
-from cuda_fft_convolution_tpu.utils.profiling import device_sync
-device_sync(scores)
+jax.block_until_ready(scores)
 dt = time.perf_counter() - t0
 thr = fh * fw * args.filters / dt / 1e9
 print(f"bank scoring: {scores.shape} in {dt*1e3:.1f} ms "

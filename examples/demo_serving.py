@@ -3,17 +3,17 @@
 
 The reference's serving story is `cudaFFTData` → repeated `cudaConvFFTData`
 calls (src/cudaFFTData.cu:97-150 keeps the data FFT on the GPU between
-calls). This demo shows the TPU-native upgrades measured in docs/PERF.md:
+calls). This demo shows the serving patterns the library adds to it:
 
   1. amortized spectra on BOTH sides (data blocks + kernel bank)
   2. a BAKED output window (trim_mode='same'): the engine writes 'same'
      maps directly — no trim copy per call
   3. AOT plans (zero retracing at call time)
   4. pipelined dispatch: keep a few calls in flight and sync every k-th —
-     on remote/tunneled runtimes this amortizes the per-call round trip
+     host work for call k+1 overlaps device work for call k
   5. frame batching: B frames per call, linear device cost per frame
 
-CPU-safe (small shapes); the measured numbers quoted are from a v5e.
+CPU-safe (small shapes).
 """
 
 import os
@@ -51,30 +51,26 @@ maps_plan = plan.execute(frames[0], bank)
 _mp, _m = np.asarray(maps_plan), np.asarray(maps)
 assert np.max(np.abs(_mp - _m)) / np.max(np.abs(_m)) < 1e-5
 
-# 4. pipelined dispatch: sync every k-th call (measured on v5e: 62.9 →
-# 39.6 ms/call from sync_every 1 → 6 on the 2048²×100 config)
+# 4. pipelined dispatch: sync every k-th call
 t0 = time.perf_counter()
-probe = None
+out = None
 for i, frame in enumerate(frames):
     sd_i = fc.fft_data_tiled(frame, K, K, trim_mode="same")
-    probe = serve(sd_i, sk)
+    out = serve(sd_i, sk)
     if (i + 1) % 4 == 0:  # sync point — bound queued work
-        np.asarray(jax.jit(jnp.ravel)(probe)[:4])
-np.asarray(jax.jit(jnp.ravel)(probe)[:4])
+        jax.block_until_ready(out)
+jax.block_until_ready(out)
 print(f"pipelined 8 frames: {(time.perf_counter() - t0) * 1e3:.1f} ms")
 
-# 5. frame batching: B frames per call (measured: 38.9 -> 14.6 ms/frame
-# from B=1 -> 8 at 1024²; marginal device cost ~11 ms/frame)
+# 5. frame batching: B frames per call
 sd_b = fc.fft_data_tiled(frames, K, K, trim_mode="same")
 maps_b = serve(sd_b, sk)
 assert maps_b.shape == (8, N, H, W)
 _mb, _m = np.asarray(maps_b[0]), np.asarray(maps)
 assert np.max(np.abs(_mb - _m)) / np.max(np.abs(_m)) < 1e-5
 
-# 6. giant resident banks: FLAT (lane-packed) spectra — on TPU HBM a
-# (540, 271) plane tile-pads to (544, 384) (1.43x); storage='flat' reads
-# nominal bytes in the traffic-bound MAC and fits ~30% more kernels
-# resident (measured: 288 vs 224 of the F=31 DPM bank on a 16 GB v5e).
+# 6. FLAT bank spectra (storage='flat', one spectral-pixel axis): the same
+# maps from the direct engine.
 sd_d = fc.fft_data(frames[0], K, K)
 sk_flat = fc.fft_kernels(bank, spectral=sd_d, storage="flat")
 maps_flat = fc.conv_spectral(sd_d, sk_flat, mode="same")
@@ -82,16 +78,6 @@ maps_plan = fc.conv_spectral(
     sd_d, fc.fft_kernels(bank, spectral=sd_d, storage="planar"), mode="same"
 )
 assert np.array_equal(np.asarray(maps_flat), np.asarray(maps_plan))
-
-# 7. precision tiers: fused-kernel dots default to 'bf16x3' (split-bf16
-# 3-pass ~ XLA HIGH; 6.7e-6 rel err, half the MXU time of 'highest' —
-# measured 65.0 -> 49.5 ms on the 2048^2 x 100 headline). Exactness-
-# critical deployments pin 'highest':
-fc.set_config(fused_precision="highest")
-maps_exact = serve(sd, sk)
-fc.set_config(fused_precision="bf16x3")
-_me, _m2 = np.asarray(maps_exact), np.asarray(maps)
-assert np.max(np.abs(_me - _m2)) / np.max(np.abs(_m2)) < 1e-4
 
 # 8. the bounded-depth serving stream: the patterns above packaged as a
 # runtime object — AOT plan + resident bank spectra + pipelined dispatch
@@ -109,9 +95,8 @@ stream.update_kernels(bank[::-1])
 
 # 9. the bf16 serving tier: spectra stored bfloat16, every contraction
 # accumulating fp32 — half the resident bank footprint (2x more kernels
-# fit) and half the bytes on the traffic-bound F=31 MACs (measured
-# 78.7 -> 52.1 ms on the 288-kernel DPM giant bank; ~5e-3 rel err vs the
-# fp32 tier's <=1e-5). Both sides opt in together:
+# fit) and half the spectral bytes (~5e-3 rel err vs the fp32 tier's
+# <=1e-5). Both sides opt in together:
 sd16 = fc.fft_data(frames[0], K, K, store_dtype="bfloat16")
 sk16 = fc.fft_kernels(bank, spectral=sd16, store_dtype="bfloat16")
 maps16 = fc.conv_spectral(sd16, sk16, mode="same")
@@ -121,8 +106,7 @@ assert np.max(np.abs(_m16 - _m)) / np.max(np.abs(_m)) < 2e-2
 # 9b. reference-parity raw circular maps (mode='fftmap') WITHOUT the
 # direct-engine tax: trim_mode='fftmap' bakes the direct FFT canvas into
 # the block tiling, so overlap-save emits the same maps (shape and
-# placement) at tiled speed — measured 6x on the 2048^2 x 100 config
-# (docs/PERF.md round 3f). fft_conv(mode='fftmap') auto-routes this.
+# placement) at tiled cost. fft_conv(mode='fftmap') auto-routes this.
 sd_map = fc.fft_data_tiled(frames[0], K, K, trim_mode="fftmap")
 raw = fc.conv_spectral(sd_map, bank, mode="fftmap")
 raw_direct = fc.fft_conv(frames[0], K, K, bank, mode="fftmap",
@@ -133,7 +117,7 @@ assert np.max(np.abs(_r - _rd)) / np.max(np.abs(_rd)) < 1e-5
 
 # 10. multi-device serving: ShardedConvStream composes the stream pool
 # with the mesh path (bank pre-sharded over the kernel axis, data spectra
-# replicated over ICI) — the reference's full streams design
+# replicated to every card) — the reference's full streams design
 # (src/cudaConvFFTDataStreams.cu:273-349: per-GPU stream pairs x kernel
 # round-robin) as two orthogonal primitives. Skipped on single-device
 # backends (run under tests/conftest.py's 8-virtual-CPU mesh to see it).

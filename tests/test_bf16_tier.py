@@ -208,61 +208,6 @@ def test_aot_plan_bf16_tier(rng):
         assert rel_err(o[0], fft_map_f64(data, kerns[0], fh, fw)) < BF16_TOL
 
 
-def test_fused_block_conv_bf16io(rng):
-    """bf16 spectra through the fused Pallas kernel (BF16IO: single-pass
-    bf16 dots, f32 accumulation) — all three variants (v2/v3/v4) match the
-    f32 fused result to tier tolerance in interpret mode."""
-    from cuda_fft_convolution_tpu.ops.block_conv import (
-        block_conv_pallas,
-        radix_h_legal,
-    )
-    from cuda_fft_convolution_tpu.ops.conv import rfft2_padded_planes
-    from cuda_fft_convolution_tpu.ops.tiled import fft_data_blocks
-
-    data = rng.standard_normal((1, 1, 60, 90)).astype(np.float32)
-    kerns = rng.standard_normal((2, 1, 5, 5)).astype(np.float32)
-    bh, bw = 20, 36  # vh=16, vw=32; radix legal: m=10? m%8!=0 → v4 skipped
-    d_re, d_im = fft_data_blocks(jnp.asarray(data), bh, bw, 5, 5)
-    k_re, k_im = rfft2_padded_planes(jnp.asarray(kerns), bh, bw)
-    oh, ow = 64, 94
-    want = np.array(
-        block_conv_pallas(
-            d_re, d_im, k_re, k_im, bh, bw, 5, 5, oh, ow, interpret=True
-        )
-    )
-    b_re, b_im = d_re.astype(jnp.bfloat16), d_im.astype(jnp.bfloat16)
-    kb_re, kb_im = k_re.astype(jnp.bfloat16), k_im.astype(jnp.bfloat16)
-    for kw in (dict(wstack=True), dict(wstack=False)):
-        got = np.array(
-            block_conv_pallas(
-                b_re, b_im, kb_re, kb_im, bh, bw, 5, 5, oh, ow,
-                interpret=True, **kw,
-            )
-        )
-        assert got.dtype == np.float32  # maps stay f32
-        assert rel_err(got, want) < BF16_TOL, kw
-    # v4 radix variant at a legal geometry (block_h=32, vh=24 → m=16, w0=8)
-    bh2 = 32
-    d2_re, d2_im = fft_data_blocks(jnp.asarray(data), bh2, bw, 9, 5)
-    k2 = rng.standard_normal((2, 1, 9, 5)).astype(np.float32)
-    k2_re, k2_im = rfft2_padded_planes(jnp.asarray(k2), bh2, bw)
-    assert radix_h_legal(bh2, bh2 - 9 + 1)
-    want4 = np.array(
-        block_conv_pallas(
-            d2_re, d2_im, k2_re, k2_im, bh2, bw, 9, 5, 68, 94,
-            interpret=True, radix_h=True,
-        )
-    )
-    got4 = np.array(
-        block_conv_pallas(
-            d2_re.astype(jnp.bfloat16), d2_im.astype(jnp.bfloat16),
-            k2_re.astype(jnp.bfloat16), k2_im.astype(jnp.bfloat16),
-            bh2, bw, 9, 5, 68, 94, interpret=True, radix_h=True,
-        )
-    )
-    assert rel_err(got4, want4) < BF16_TOL
-
-
 def test_tier_composes_with_round3_options(rng):
     """bf16 tier × padding='clamp' / kernel_layout='centered' /
     correlation: each matches its fp32-tier counterpart to tier noise."""

@@ -52,7 +52,7 @@ def test_shapes_property(rng, h, w, f, kh, kw):
 
 
 def test_direct_conv_oracle_agreement(rng):
-    """direct_conv_single (the MXU spatial path) agrees with the f64 oracle."""
+    """direct_conv_single (the spatial path) agrees with the f64 oracle."""
     data = rng.standard_normal((20, 30, 3)).astype(np.float32)
     kern = rng.standard_normal((7, 5, 3)).astype(np.float32)
     got = np.array(direct_conv_single(_cf(data), _cf(kern)))

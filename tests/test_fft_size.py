@@ -8,7 +8,6 @@ from cuda_fft_convolution_tpu.utils.fft_size import (
     ceil_div,
     compute_fft_size,
     next_fast_len,
-    next_fast_len_aligned,
     next_multiple_of_16,
     next_pow2,
 )
@@ -55,13 +54,6 @@ def test_next_fast_len_is_smooth_and_minimal(n):
             while y % p == 0:
                 y //= p
         assert y != 1
-
-
-def test_tpu_policy_alignment():
-    fh, fw = compute_fft_size(2048, 2048, 64, 64, FftSizePolicy.TPU)
-    assert fh % 8 == 0 and fw % 128 == 0
-    assert fh >= 2111 and fw >= 2111
-    assert next_fast_len_aligned(7, 128) == 128
 
 
 def test_policies_cover_linear_conv():

@@ -1,5 +1,4 @@
-"""Differentiability tests: the whole FFT-conv path has exact VJPs,
-including through the Pallas MAC (custom VJP = the einsum contractions).
+"""Differentiability tests: the whole FFT-conv path has exact VJPs.
 A capability the reference's MEX pipeline cannot offer at all."""
 
 import jax
@@ -7,35 +6,6 @@ import numpy as np
 import jax.numpy as jnp
 
 import cuda_fft_convolution_tpu as fc
-from cuda_fft_convolution_tpu.ops.spectral_mac import (
-    _mac_pallas_ad,
-    spectral_mac_planes,
-)
-
-
-def _planes(rng, shape):
-    return (
-        jnp.asarray(rng.standard_normal(shape).astype(np.float32)),
-        jnp.asarray(rng.standard_normal(shape).astype(np.float32)),
-    )
-
-
-def test_pallas_mac_vjp_matches_einsum(rng):
-    dr, di = _planes(rng, (1, 3, 16, 9))
-    kr, ki = _planes(rng, (2, 3, 16, 9))
-
-    def loss_p(dr, di, kr, ki):
-        o_r, o_i = _mac_pallas_ad(dr, di, kr, ki)
-        return jnp.sum(o_r**2 + o_i**2)
-
-    def loss_e(dr, di, kr, ki):
-        o_r, o_i = spectral_mac_planes(dr, di, kr, ki)
-        return jnp.sum(o_r**2 + o_i**2)
-
-    g_p = jax.grad(loss_p, argnums=(0, 1, 2, 3))(dr, di, kr, ki)
-    g_e = jax.grad(loss_e, argnums=(0, 1, 2, 3))(dr, di, kr, ki)
-    for a, b in zip(g_p, g_e):
-        np.testing.assert_allclose(np.array(a), np.array(b), atol=1e-4)
 
 
 def test_grad_through_fft_conv_finite_difference(rng):
@@ -74,56 +44,9 @@ def test_grad_through_tiled_engine(rng):
     np.testing.assert_allclose(g_tiled, g_direct, rtol=1e-3, atol=1e-2)
 
 
-def test_fused_block_conv_vjp_matches_unfused(rng):
-    """The fused Pallas block-conv's custom VJP is defined to be the
-    unfused pipeline's transpose — all four spectra-plane cotangents must
-    match the unfused path bit-for-fp32-close. Runs the kernel in interpret
-    mode off-TPU; on TPU (FFTCONV_TEST_TPU=1) this exercises the compiled
-    Mosaic kernel — the geometry below passes fused_dispatch_auto there."""
-    from cuda_fft_convolution_tpu.ops.tiled import (
-        _conv_blocks_unfused,
-        fft_data_blocks,
-        fused_block_conv,
-    )
-
-    block_h, block_w, kh, kw = 36, 256, 5, 129
-    out_h, out_w = 64, 300
-    data = jnp.asarray(rng.standard_normal((1, 2, 60, 172)).astype(np.float32))
-    d_re, d_im = fft_data_blocks(data, block_h, block_w, kh, kw)
-    k_re = jnp.asarray(
-        rng.standard_normal((2, 2, block_h, block_w // 2 + 1)).astype(np.float32)
-    )
-    k_im = jnp.asarray(
-        rng.standard_normal((2, 2, block_h, block_w // 2 + 1)).astype(np.float32)
-    )
-
-    def loss_fused(a, b, c, d):
-        return jnp.sum(
-            fused_block_conv(a, b, c, d, block_h, block_w, kh, kw, out_h, out_w)
-            ** 2
-        )
-
-    def loss_unfused(a, b, c, d):
-        return jnp.sum(
-            _conv_blocks_unfused(
-                a, b, c, d, block_h, block_w, kh, kw, out_h, out_w
-            )
-            ** 2
-        )
-
-    g_f = jax.grad(loss_fused, argnums=(0, 1, 2, 3))(d_re, d_im, k_re, k_im)
-    g_u = jax.grad(loss_unfused, argnums=(0, 1, 2, 3))(d_re, d_im, k_re, k_im)
-    for a, b in zip(g_f, g_u):
-        scale = max(float(jnp.max(jnp.abs(b))), 1e-6)
-        assert float(jnp.max(jnp.abs(a - b))) / scale < 1e-4
-
-
 def test_grad_through_tiled_engine_fused_dispatch(rng):
-    """jax.grad through fft_conv(algorithm='tiled') with the fused Pallas
-    kernel FORCED on (the production TPU dispatch at fused geometries) must
-    match the direct engine. This is the configuration that used to crash
-    with an un-differentiable pallas_call before fused_block_conv's custom
-    VJP existed."""
+    """jax.grad through the tiled engine at an explicit, non-5-smooth block
+    geometry with a wide non-square kernel must match the direct engine."""
     data = jnp.asarray(rng.standard_normal((64, 300, 1)).astype(np.float32))
     kern = jnp.asarray(rng.standard_normal((5, 129, 1)).astype(np.float32))
 
@@ -135,11 +58,7 @@ def test_grad_through_tiled_engine_fused_dispatch(rng):
         out = fc.conv_spectral(spectral, k[None], mode="same")
         return jnp.sum(out**2)
 
-    fc.set_config(use_fused_block_conv=True)
-    try:
-        g_fused = np.array(jax.grad(loss_tiled)(kern))
-    finally:
-        fc.set_config(use_fused_block_conv=None)
+    g_fused = np.array(jax.grad(loss_tiled)(kern))
     g_direct = np.array(
         jax.grad(
             lambda k: jnp.sum(
@@ -150,98 +69,6 @@ def test_grad_through_tiled_engine_fused_dispatch(rng):
     )
     scale = np.max(np.abs(g_direct))
     assert np.max(np.abs(g_fused - g_direct)) / scale < 1e-4
-
-
-def test_fused_block_conv_vjp_radix_geometry(rng):
-    """The v4 radix-2 H-stage variant (headline plan (256,·)/vh=192) also
-    differentiates through the custom VJP and matches the unfused path."""
-    from cuda_fft_convolution_tpu.ops.block_conv import radix_h_legal
-    from cuda_fft_convolution_tpu.ops.tiled import (
-        _conv_blocks_unfused,
-        fft_data_blocks,
-        fused_block_conv,
-    )
-
-    block_h, block_w, kh, kw = 256, 256, 65, 129
-    assert radix_h_legal(block_h, block_h - kh + 1)
-    out_h, out_w = 200, 128
-    data = jnp.asarray(rng.standard_normal((1, 1, 136, 128)).astype(np.float32))
-    d_re, d_im = fft_data_blocks(data, block_h, block_w, kh, kw)
-    k_re = jnp.asarray(
-        rng.standard_normal((1, 1, block_h, block_w // 2 + 1)).astype(np.float32)
-    )
-    k_im = jnp.asarray(
-        rng.standard_normal((1, 1, block_h, block_w // 2 + 1)).astype(np.float32)
-    )
-
-    def loss_fused(c, d):
-        return jnp.sum(
-            fused_block_conv(
-                d_re, d_im, c, d, block_h, block_w, kh, kw, out_h, out_w
-            )
-            ** 2
-        )
-
-    def loss_unfused(c, d):
-        return jnp.sum(
-            _conv_blocks_unfused(
-                d_re, d_im, c, d, block_h, block_w, kh, kw, out_h, out_w
-            )
-            ** 2
-        )
-
-    g_f = jax.grad(loss_fused, argnums=(0, 1))(k_re, k_im)
-    g_u = jax.grad(loss_unfused, argnums=(0, 1))(k_re, k_im)
-    for a, b in zip(g_f, g_u):
-        scale = max(float(jnp.max(jnp.abs(b))), 1e-6)
-        assert float(jnp.max(jnp.abs(a - b))) / scale < 1e-4
-
-
-def test_fused_block_conv_vjp_bf16_tier(rng):
-    """bf16 serving-tier spectra stay differentiable through the fused
-    kernel: cotangents come back bf16 and track the unfused path's within
-    the tier's storage-rounding accuracy."""
-    from cuda_fft_convolution_tpu.ops.tiled import (
-        _conv_blocks_unfused,
-        fft_data_blocks,
-        fused_block_conv,
-    )
-
-    block_h, block_w, kh, kw = 36, 256, 5, 129
-    out_h, out_w = 64, 172
-    data = jnp.asarray(rng.standard_normal((1, 2, 60, 44)).astype(np.float32))
-    d_re, d_im = fft_data_blocks(data, block_h, block_w, kh, kw)
-    d_re, d_im = d_re.astype(jnp.bfloat16), d_im.astype(jnp.bfloat16)
-    k_re = jnp.asarray(
-        rng.standard_normal((2, 2, block_h, block_w // 2 + 1))
-    ).astype(jnp.bfloat16)
-    k_im = jnp.asarray(
-        rng.standard_normal((2, 2, block_h, block_w // 2 + 1))
-    ).astype(jnp.bfloat16)
-
-    def loss_fused(c, d):
-        return jnp.sum(
-            fused_block_conv(
-                d_re, d_im, c, d, block_h, block_w, kh, kw, out_h, out_w
-            )
-            ** 2
-        )
-
-    def loss_unfused(c, d):
-        return jnp.sum(
-            _conv_blocks_unfused(
-                d_re, d_im, c, d, block_h, block_w, kh, kw, out_h, out_w
-            )
-            ** 2
-        )
-
-    g_f = jax.grad(loss_fused, argnums=(0, 1))(k_re, k_im)
-    g_u = jax.grad(loss_unfused, argnums=(0, 1))(k_re, k_im)
-    for a, b in zip(g_f, g_u):
-        assert a.dtype == jnp.bfloat16
-        af, bf = a.astype(jnp.float32), b.astype(jnp.float32)
-        scale = max(float(jnp.max(jnp.abs(bf))), 1e-6)
-        assert float(jnp.max(jnp.abs(af - bf))) / scale < 2e-2
 
 
 def test_grad_through_fftmap_canvas(rng):

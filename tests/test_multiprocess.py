@@ -2,7 +2,7 @@
 
 SURVEY.md §5 maps the reference's peer-copy multi-GPU intent
 (src/cudaConvFFTDataStreams.cu:279-289) to "multi-host via the same
-pjit/shard_map program over DCN with no code change". The single-process
+pjit/shard_map program across hosts with no code change". The single-process
 8-virtual-device mesh tests cannot verify the cross-process half of that
 claim (every device is addressable there); this test runs the library's
 sharded paths under ``jax.distributed`` with 2 local processes × 4 CPU
@@ -19,9 +19,7 @@ import sys
 import pytest
 
 _SCRIPT = os.path.join(
-    os.path.dirname(os.path.dirname(os.path.abspath(__file__))),
-    "perf",
-    "multiproc_dryrun.py",
+    os.path.dirname(os.path.abspath(__file__)), "multiproc_dryrun.py"
 )
 
 

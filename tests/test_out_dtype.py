@@ -5,13 +5,11 @@ detection use case, README.md:4-6): output MAPS are the dominant write
 traffic at serving geometries, and detection tolerates bf16 rounding on
 the scores (~4e-3 — the same envelope as the bf16 spectra tier,
 tests/test_bf16_tier.py). ``out_dtype`` halves the output write bytes
-(in-kernel cast on the fused Pallas path, pre-reassembly cast on the
-unfused one) and halves the in-flight bytes of a depth-bounded server.
+(a pre-reassembly cast on the tiled engine) and halves the in-flight bytes
+of a depth-bounded server.
 
 These tests pin: dtype on every surface (direct/tiled/pipelined/plan/
-stream/sharded), parity vs the f32 output within the bf16 envelope, and
-the gradient path through the fused kernel's custom VJP with a bf16
-cotangent.
+stream/sharded) and parity vs the f32 output within the bf16 envelope.
 """
 
 import jax
@@ -116,53 +114,6 @@ def test_plan_and_stream_out_dtype(rng):
     ) as stream:
         got = stream.submit(frame).result()
     assert got.dtype == jnp.bfloat16
-
-
-def test_fused_kernel_out_dtype_interpret(rng):
-    """The fused Pallas kernel stores bf16 IN-KERNEL (interpret mode here;
-    the same kernel body compiles through Mosaic on TPU)."""
-    from cuda_fft_convolution_tpu.ops.block_conv import block_conv_pallas
-    from cuda_fft_convolution_tpu.ops.tiled import _conv_blocks_unfused
-
-    dr = jnp.asarray(rng.standard_normal((1, 2, 2, 1, 16, 9)), jnp.float32)
-    di = jnp.asarray(rng.standard_normal((1, 2, 2, 1, 16, 9)), jnp.float32)
-    kr = jnp.asarray(rng.standard_normal((3, 1, 16, 9)), jnp.float32)
-    ki = jnp.asarray(rng.standard_normal((3, 1, 16, 9)), jnp.float32)
-    want = _conv_blocks_unfused(dr, di, kr, ki, 16, 16, 9, 9, 16, 16)
-    got = block_conv_pallas(
-        dr, di, kr, ki, 16, 16, 9, 9, 16, 16,
-        interpret=True, out_dtype="bfloat16",
-    )
-    assert got.dtype == jnp.bfloat16
-    assert _rel(got.astype(jnp.float32), want) < BF16_OUT_TOL
-
-
-def test_grad_through_fused_bf16_out(rng):
-    """jax.grad through the fused kernel's custom VJP with a bf16-out
-    forward: the cotangent arrives bf16 and the unfused-transpose backward
-    upcasts it (cast transpose), giving f32 grads close to the f32-out
-    path's."""
-    from cuda_fft_convolution_tpu.ops.tiled import fused_block_conv
-
-    dr = jnp.asarray(rng.standard_normal((1, 2, 1, 1, 16, 9)), jnp.float32)
-    di = jnp.asarray(rng.standard_normal((1, 2, 1, 1, 16, 9)), jnp.float32)
-    kr = jnp.asarray(rng.standard_normal((2, 1, 16, 9)), jnp.float32)
-    ki = jnp.asarray(rng.standard_normal((2, 1, 16, 9)), jnp.float32)
-
-    def loss(dtype):
-        def f(a, b, c, d):
-            out = fused_block_conv(
-                a, b, c, d, 16, 16, 9, 9, 16, 8, dtype
-            )
-            return jnp.sum(out.astype(jnp.float32) ** 2)
-        return f
-
-    g32 = jax.grad(loss("float32"), argnums=(0, 2))(dr, di, kr, ki)
-    gb = jax.grad(loss("bfloat16"), argnums=(0, 2))(dr, di, kr, ki)
-    for a, b in zip(gb, g32):
-        assert a.dtype == jnp.float32
-        assert bool(jnp.isfinite(a).all())
-        assert _rel(a, b) < 2e-2  # bf16 cotangent rounding
 
 
 @pytest.mark.skipif(

@@ -302,8 +302,8 @@ def test_detect_peaks_sharded_matches_single_device(rng):
     np.testing.assert_allclose(
         np.asarray(tg_v), np.asarray(tw_v), rtol=1e-5
     )
-    # batched over a 2-D (data × kernels) mesh (simulated CPU mesh only —
-    # the attached TPU is a single chip; the 1-D sections above still run)
+    # batched over a 2-D (data × kernels) mesh (needs 8 devices — the
+    # simulated CPU mesh; the 1-D sections above run on fewer)
     if len(jax.devices()) >= 8:
         mesh2 = fc.make_mesh(data=2, kernels=4)
         bdata = rng.standard_normal((2, 70, 64, 2)).astype(np.float32)

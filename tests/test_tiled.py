@@ -2,9 +2,7 @@
 direct engine and the float64 oracle — tiling is a pure performance
 transform and must be bit-level fp32-equivalent on linear windows."""
 
-import jax
 import numpy as np
-import jax.numpy as jnp
 import pytest
 
 import cuda_fft_convolution_tpu as fc
@@ -16,8 +14,7 @@ TOL = 1e-5
 
 
 def test_choose_block_policy():
-    # big image, small kernel → tile (engine pinned per-branch so the test
-    # is deterministic on both CPU and TPU backends)
+    # big image, small kernel → tile (engine pinned per-branch)
     blk = choose_block_fft(2048, 2048, 64, 64, matmul_engine=False)
     assert blk is not None
     lh, lw = blk
@@ -26,10 +23,10 @@ def test_choose_block_policy():
     blk_mm = choose_block_fft(2048, 2048, 64, 64, matmul_engine=True)
     assert blk_mm is not None
     lh, lw = blk_mm
-    # MXU-DFT engine wants small blocks with an aligned valid window
+    # matmul-DFT engine wants small blocks with a rounded valid window
     assert lh >= 64 + 8 - 1 and lw >= 64 + 128 - 1
     # FFT engine: kernel comparable to image → decline (direct engine wins);
-    # small image → decline. The MXU-DFT engine's windowed inverses absorb
+    # small image → decline. The matmul-DFT engine's windowed inverses absorb
     # overlap redundancy, so it keeps tiling these shapes (its per-pixel
     # cost grows with block size, not kernel/image ratio).
     assert choose_block_fft(2048, 2048, 512, 512, matmul_engine=False) is None
@@ -139,45 +136,6 @@ def test_tiled_correlation(rng):
                     algorithm="tiled")
     )
     np.testing.assert_allclose(a, b, atol=1e-6)
-
-
-def test_fused_block_conv_matches_unfused(rng):
-    """ops/block_conv.py (single Pallas kernel: MAC + windowed inverse DFT)
-    must be numerically identical to the unfused pipeline."""
-    data = rng.standard_normal((100, 90, 2)).astype(np.float32)
-    kerns = [rng.standard_normal((6, 6, 2)).astype(np.float32) for _ in range(3)]
-    sd = fc.fft_data_tiled(data, 6, 6, block_h=32, block_w=32)
-    want = np.array(fc.conv_spectral(sd, kerns, mode="full"))
-    try:
-        fc.set_config(use_fused_block_conv=True, fused_precision="highest")
-        got = np.array(fc.conv_spectral(sd, kerns, mode="full"))
-    finally:
-        fc.set_config(use_fused_block_conv=None, fused_precision="bf16x3")
-    np.testing.assert_allclose(got, want, atol=1e-4)
-    ref = fft_conv_full_f64(data, kerns[0])
-    assert rel_err(got[0], ref) < 1e-5
-
-
-def test_fused_radix_h_matches_unfused(rng):
-    """The v4 radix-2 H-stage kernel (ops/block_conv.py _make_kernel_v4),
-    auto-selected by conv_blocks whenever radix_h_legal holds, must match
-    the unfused pipeline and the f64 oracle. Block (32, 37) with kh=9 →
-    vh=24, M=16, w0=8: radix-legal, window spans the period boundary."""
-    from cuda_fft_convolution_tpu.ops.block_conv import radix_h_legal
-
-    data = rng.standard_normal((100, 90, 2)).astype(np.float32)
-    kerns = [rng.standard_normal((9, 6, 2)).astype(np.float32) for _ in range(3)]
-    sd = fc.fft_data_tiled(data, 9, 6, block_h=32, block_w=37)
-    assert radix_h_legal(32, 32 - 9 + 1)
-    want = np.array(fc.conv_spectral(sd, kerns, mode="full"))
-    try:
-        fc.set_config(use_fused_block_conv=True, fused_precision="highest")
-        got = np.array(fc.conv_spectral(sd, kerns, mode="full"))
-    finally:
-        fc.set_config(use_fused_block_conv=None, fused_precision="bf16x3")
-    np.testing.assert_allclose(got, want, atol=1e-4)
-    ref = fft_conv_full_f64(data, kerns[0])
-    assert rel_err(got[0], ref) < 1e-5
 
 
 def test_enlarged_envelope_plan_equivalence(rng):
@@ -302,152 +260,6 @@ def test_matmul_tiled_property_sweep(rng):
             )
     finally:
         fc.set_config(use_matmul_fft=None)
-
-
-def test_fused_block_conv_mbh_grouping(rng):
-    """The fused kernel's MBH block grouping (column-stacked H-stage dots)
-    with a non-dividing block count (pad group clipped at out_h) must match
-    the unfused pipeline."""
-    from cuda_fft_convolution_tpu.ops.block_conv import _choose_group
-
-    data = rng.standard_normal((100, 90, 2)).astype(np.float32)
-    kerns = [rng.standard_normal((6, 6, 2)).astype(np.float32) for _ in range(3)]
-    # block (21, 37): vh=16, vw=32, nbh=ceil(105/16)=7 → mbh>1 and 7%mbh!=0
-    sd = fc.fft_data_tiled(data, 6, 6, block_h=21, block_w=37)
-    nbh, nbw = sd.re.shape[0], sd.re.shape[1]
-    assert _choose_group(nbh, nbw, 2, 21, 19, 16, 32)[0] > 1
-    want = np.array(fc.conv_spectral(sd, kerns, mode="full"))
-    try:
-        fc.set_config(use_fused_block_conv=True, fused_precision="highest")
-        got = np.array(fc.conv_spectral(sd, kerns, mode="full"))
-    finally:
-        fc.set_config(use_fused_block_conv=None, fused_precision="bf16x3")
-    np.testing.assert_allclose(got, want, atol=1e-4)
-    ref = fft_conv_full_f64(data, kerns[1])
-    assert rel_err(got[1], ref) < 1e-5
-
-
-def test_fused_block_conv_mbw_grouping(rng):
-    """(MBH, MBW) block groups — including a non-dividing W block count
-    (pad group clipped at out_w) — must match the unfused pipeline."""
-    from cuda_fft_convolution_tpu.ops.block_conv import block_conv_pallas
-    from cuda_fft_convolution_tpu.ops.tiled import fft_data_blocks
-
-    data = rng.standard_normal((1, 2, 80, 150)).astype(np.float32)
-    kerns = rng.standard_normal((3, 2, 6, 6)).astype(np.float32)
-    bh, bw = 21, 37  # vh=16, vw=32; nbw=ceil(155/32)=5 → mbw=2 pads to 6
-    d_re, d_im = fft_data_blocks(jnp.asarray(data), bh, bw, 6, 6)
-    from cuda_fft_convolution_tpu.ops.conv import rfft2_padded_planes
-
-    k_re, k_im = rfft2_padded_planes(jnp.asarray(kerns), bh, bw)
-    oh, ow = 80 + 5, 150 + 5
-    want = np.array(
-        block_conv_pallas(
-            d_re, d_im, k_re, k_im, bh, bw, 6, 6, oh, ow,
-            interpret=True, mbh=1, mbw=1,
-        )
-    )
-    for mbh, mbw in [(2, 2), (1, 3), (4, 2)]:
-        got = np.array(
-            block_conv_pallas(
-                d_re, d_im, k_re, k_im, bh, bw, 6, 6, oh, ow,
-                interpret=True, mbh=mbh, mbw=mbw,
-            )
-        )
-        np.testing.assert_allclose(got, want, atol=1e-4, err_msg=f"{mbh}x{mbw}")
-    ref = fft_conv_full_f64(
-        np.transpose(data[0], (1, 2, 0)), np.transpose(kerns[1], (1, 2, 0))
-    )
-    assert rel_err(want[0, 1], ref) < 1e-5
-
-
-def test_fused_block_conv_bf16x3_precision(rng):
-    """The split-bf16 3-pass dot decomposition must reproduce the HIGHEST
-    result closely (on CPU interpret the dots are fp32 either way, so this
-    checks the hi/lo split arithmetic; the real-bf16 accuracy gate runs on
-    TPU via the fuzz suite)."""
-    from cuda_fft_convolution_tpu.ops.block_conv import (
-        BF16X3,
-        block_conv_pallas,
-    )
-    from cuda_fft_convolution_tpu.ops.conv import rfft2_padded_planes
-    from cuda_fft_convolution_tpu.ops.tiled import fft_data_blocks
-
-    data = rng.standard_normal((1, 1, 60, 90)).astype(np.float32)
-    kerns = rng.standard_normal((2, 1, 5, 5)).astype(np.float32)
-    bh, bw = 20, 36
-    d_re, d_im = fft_data_blocks(jnp.asarray(data), bh, bw, 5, 5)
-    k_re, k_im = rfft2_padded_planes(jnp.asarray(kerns), bh, bw)
-    oh, ow = 64, 94
-    hi = np.array(
-        block_conv_pallas(
-            d_re, d_im, k_re, k_im, bh, bw, 5, 5, oh, ow, interpret=True
-        )
-    )
-    lo = np.array(
-        block_conv_pallas(
-            d_re, d_im, k_re, k_im, bh, bw, 5, 5, oh, ow, interpret=True,
-            precision=BF16X3,
-        )
-    )
-    assert rel_err(lo, hi) < 1e-4
-
-
-def test_fused_vmem_gate_measured_boundary():
-    """The fused-dispatch VMEM model must track the MEASURED Mosaic
-    scoped-vmem outcomes (perf/sweep_f8_fused.py, v5e remote compile).
-    Plans whose compile aborted with 'Scoped allocation ... exceeded
-    scoped vmem limit' must be rejected by the tile-padded model; every
-    plan that compiled and ran must still pass."""
-    from cuda_fft_convolution_tpu.ops.block_conv import (
-        _choose_group,
-        block_conv_fits_vmem,
-        block_conv_vmem_bytes,
-    )
-
-    # (lh, lw, vh, vw, F, spec_bytes) → compiled+ran on the v5e sweep
-    ran = [
-        (256, 511, 192, 384, 2, 4), (256, 511, 192, 384, 4, 2),
-        (127, 447, 64, 384, 8, 4), (127, 447, 64, 384, 16, 2),
-        (128, 511, 96, 384, 4, 4),
-        (95, 431, 48, 384, 16, 4), (95, 431, 48, 384, 8, 2),
-        (63, 287, 32, 256, 16, 2), (63, 287, 32, 256, 31, 2),
-    ]
-    for lh, lw, vh, vw, f, sb in ran:
-        wc = lw // 2 + 1
-        assert block_conv_fits_vmem(f, lh, wc, vh, vw, sb), (lh, lw, f, sb)
-
-    # bf16 scoped-vmem abort at MBH=MBW=1 (modeled 12.63 MB ≥ the 12 MB
-    # bf16 bar — hidden f32 conversion copies tighten the real limit)
-    assert not block_conv_fits_vmem(31, 95, 216, 48, 384, 2)
-
-    # f32 aborts happened at the GROUPS the old unpadded model chose:
-    # (63, 287) F=8 group (4, 2) → real 16.75 MB > the 16 MB scoped limit.
-    # The padded model must price those groups out of _choose_group's
-    # 12 MB growth bar...
-    assert block_conv_vmem_bytes(8, 63, 144, 32, 256, 4, True, 2, 4) >= (
-        12 << 20
-    )
-    assert block_conv_vmem_bytes(16, 63, 144, 32, 256, 2, True, 2, 4) >= (
-        12 << 20
-    )
-    for f, sb in ((8, 4), (16, 4)):
-        g = _choose_group(31, 4, f, 63, 144, 32, 256, True)
-        assert block_conv_vmem_bytes(
-            f, 63, 144, 32, 256, g[0], True, g[1], 4
-        ) < (12 << 20), (f, g)
-
-    # ...while the measured-best production groups are preserved (the
-    # padded model equals the old one wherever dims were already
-    # tile-aligned): the headline v4 plan keeps (2, 2) (59.1 ms vs (4, 1)
-    # 65.3 measured) and the 32²-kernel plan keeps a non-trivial group
-    # under the 12 MB growth bar.
-    assert _choose_group(11, 6, 1, 256, 256, 192, 384, True) == (2, 2)
-    g32 = _choose_group(22, 6, 1, 128, 256, 96, 384, True)
-    assert g32[0] * g32[1] >= 4
-    assert block_conv_vmem_bytes(
-        1, 128, 256, 96, 384, g32[0], True, g32[1], 4
-    ) < (12 << 20)
 
 
 # ---------------------------------------------------------------------------
@@ -600,212 +412,3 @@ def test_fftmap_auto_honors_pinned_policy(rng):
     )
     assert got.shape == want.shape
     assert rel_err(got, want) < TOL
-
-
-@pytest.mark.parametrize("xsliver", [False, True])
-@pytest.mark.parametrize(
-    "bh,bw,kh,kw",
-    [
-        (256, 512, 65, 129),  # three-segment store (the production shape)
-        (256, 512, 65, 1),  # s1 = L2: empty middle segment (kw=1)
-        (256, 1024, 65, 257),  # wider block, same alignment class
-    ],
-)
-def test_block_conv_v5_radix_w_parity(rng, bh, bw, kh, kw, xsliver):
-    """The v5 kernel (radix-2 H stage + radix-2 DIF halves-split W stage
-    with the Nyquist-sliver lane layout) is EXACT against the v3 windowed
-    kernel — interpret mode off-TPU, the compiled Mosaic kernel under
-    FFTCONV_TEST_TPU=1. ``xsliver=True`` runs the v5x variant (sliver
-    synthesized in XLA, applied as a rank-1 MXU dot) — same contract."""
-    import jax.numpy as jnp
-
-    from cuda_fft_convolution_tpu.ops.block_conv import (
-        block_conv_pallas,
-        block_conv_peaks_pallas,
-        radix_h_legal,
-        radix_w_legal,
-    )
-    from cuda_fft_convolution_tpu.ops.tiled import fft_data_blocks
-    vh, vw = bh - kh + 1, bw - kw + 1
-    assert radix_h_legal(bh, vh) and radix_w_legal(bw, kw, vw)
-    out_h, out_w = 300, 500
-    data = jnp.asarray(
-        rng.standard_normal((1, 2, 300, 500)).astype(np.float32)
-    )
-    d_re, d_im = fft_data_blocks(
-        data, bh, bw, kh, kw, origin_h=kh // 2, origin_w=kw // 2,
-        win_h=out_h, win_w=out_w,
-    )
-    k_re = jnp.asarray(
-        rng.standard_normal((2, 2, bh, bw // 2 + 1)).astype(np.float32)
-    )
-    k_im = jnp.asarray(
-        rng.standard_normal((2, 2, bh, bw // 2 + 1)).astype(np.float32)
-    )
-    interp = jax.default_backend() != "tpu"
-    ref = block_conv_pallas(
-        d_re, d_im, k_re, k_im, bh, bw, kh, kw, out_h, out_w,
-        interpret=interp, radix_h=False, wstack=True,
-    )
-    v5 = block_conv_pallas(
-        d_re, d_im, k_re, k_im, bh, bw, kh, kw, out_h, out_w,
-        interpret=interp, radix_h=True, radix_w=True, xsliver=xsliver,
-    )
-    scale = float(jnp.max(jnp.abs(ref)))
-    assert float(jnp.max(jnp.abs(v5 - ref))) / scale < 2e-5
-    # assume_permuted: radix-layout inputs (rows even|odd, lanes
-    # [W-even | W-odd | Nyquist]) skip the per-call gathers — results
-    # must be BIT-identical to the in-kernel-permute path (measured
-    # rel 0.0 on-chip, perf PERF.md round 5)
-    if (kh, kw) == (65, 129):
-        ph = np.concatenate([np.arange(0, bh, 2), np.arange(1, bh, 2)])
-        l4 = bw // 4
-        pw = np.concatenate(
-            [np.arange(0, 2 * l4, 2), np.arange(1, 2 * l4, 2), [2 * l4]]
-        )
-        dp = tuple(x[:, :, :, :, ph][..., pw] for x in (d_re, d_im))
-        kp = tuple(x[:, :, ph][..., pw] for x in (k_re, k_im))
-        v5p = block_conv_pallas(
-            *dp, *kp, bh, bw, kh, kw, out_h, out_w,
-            interpret=interp, radix_h=True, radix_w=True,
-            xsliver=xsliver, assume_permuted=True,
-        )
-        np.testing.assert_array_equal(np.asarray(v5p), np.asarray(v5))
-    # the peaks epilogue shares the transform path — pin it on the
-    # three-segment production shape per variant
-    if (kh, kw) == (65, 129):
-        rv, ri = block_conv_peaks_pallas(
-            d_re, d_im, k_re, k_im, bh, bw, kh, kw, out_h, out_w,
-            interpret=interp, radix_h=False,
-        )
-        pv, pi_ = block_conv_peaks_pallas(
-            d_re, d_im, k_re, k_im, bh, bw, kh, kw, out_h, out_w,
-            interpret=interp, radix_w=True, xsliver=xsliver,
-        )
-        assert float(jnp.max(jnp.abs(pv - rv))) / scale < 2e-5
-        assert bool(jnp.all(pi_ == ri))
-
-
-def test_fused_radix_w_registered_plan(rng):
-    """A registered v5 plan (register_radix_w_plan) flips production
-    dispatch (fused_block_conv) to the DIF W-stage kernel; output must
-    match the unregistered (v4) fused path and the unfused pipeline."""
-    from cuda_fft_convolution_tpu.ops.block_conv import (
-        _RADIX_W_TABLE,
-        radix_w_enabled,
-        register_radix_w_plan,
-    )
-
-    data = rng.standard_normal((300, 700, 1)).astype(np.float32)
-    kerns = [rng.standard_normal((65, 129, 1)).astype(np.float32)]
-    sd = fc.fft_data_tiled(data, 65, 129, block_h=256, block_w=512)
-    want = np.array(fc.conv_spectral(sd, kerns, mode="full"))
-    # the measured fp32 F=1 headline plan ships builtin-registered (v5,
-    # in-kernel sliver); the bf16 F=1 plan ships as the v5x variant
-    # (round 5 — the tier's MXU lever); multi-F banks measured LOSING at
-    # both variants and stay v4 (perf/r4e_v5_fmulti.py, r5a_v5x.py)
-    assert radix_w_enabled(256, 512, 65, 129)
-    from cuda_fft_convolution_tpu.ops.block_conv import radix_w_xsliver
-
-    assert not radix_w_xsliver(256, 512, 129)
-    assert radix_w_enabled(256, 512, 65, 129, spec_bytes=2)
-    assert radix_w_xsliver(256, 512, 129, spec_bytes=2)
-    assert not radix_w_enabled(256, 512, 65, 129, f=2)
-    assert not radix_w_enabled(256, 512, 65, 129, f=4)
-    assert not radix_w_enabled(256, 1024, 65, 257)
-    register_radix_w_plan(256, 1024, 257)
-    register_radix_w_plan(256, 512, 129, f=3)
-    try:
-        assert radix_w_enabled(256, 1024, 65, 257)
-        assert radix_w_enabled(256, 512, 65, 129, f=3)
-        assert not radix_w_enabled(256, 1024, 65, 257, f=2)
-    finally:
-        _RADIX_W_TABLE.discard((256, 1024, 257, 4, 1))
-        _RADIX_W_TABLE.discard((256, 512, 129, 4, 3))
-    # the detection head's plans are a SEPARATE table (head='peaks'):
-    # conv registrations never leak into peaks dispatch and vice versa.
-    # builtin since round 4g: the fp32 F=1 (256,512) v5-peaks plan
-    # (perf/r4g2_v5_peaks_api.py: 18.4 vs 21.2 ms/frame streamed)
-    from cuda_fft_convolution_tpu.ops.block_conv import (
-        _RADIX_W_TABLE_PEAKS,
-    )
-
-    assert radix_w_enabled(256, 512, 65, 129, head="peaks")
-    assert not radix_w_enabled(256, 512, 65, 129, f=2, head="peaks")
-    assert not radix_w_enabled(256, 512, 65, 129, spec_bytes=2,
-                               head="peaks")
-    assert not radix_w_enabled(256, 1024, 65, 257, head="peaks")
-    register_radix_w_plan(256, 1024, 257, head="peaks")
-    try:
-        assert radix_w_enabled(256, 1024, 65, 257, head="peaks")
-        # ...and peaks registrations never leak into conv dispatch
-        assert not radix_w_enabled(256, 1024, 65, 257)
-    finally:
-        _RADIX_W_TABLE_PEAKS.discard((256, 1024, 257, 4, 1))
-    assert not radix_w_enabled(256, 1024, 65, 257, head="peaks")
-    # registration must invalidate the OUTER jitted workers too: they
-    # inline the radix_w_enabled decision at trace time, so a stale
-    # conv_blocks/conv_blocks_peaks executable would keep serving the
-    # old kernel after a plan lands (caught live in perf/r4g_v5_peaks.py)
-    from cuda_fft_convolution_tpu.ops.tiled import conv_blocks
-
-    np.array(fc.conv_spectral(sd, kerns, mode="full"))  # (re)populate
-    assert conv_blocks._cache_size() > 0
-    register_radix_w_plan(256, 512, 129, head="peaks")
-    try:
-        assert conv_blocks._cache_size() == 0
-    finally:
-        _RADIX_W_TABLE_PEAKS.discard((256, 512, 129, 4, 1))
-    try:
-        fc.set_config(use_fused_block_conv=True, fused_precision="highest")
-        got = np.array(fc.conv_spectral(sd, kerns, mode="full"))
-    finally:
-        fc.set_config(use_fused_block_conv=None, fused_precision="bf16x3")
-    scale = np.max(np.abs(want))
-    # the builtin-routed v5 DIF vs the unfused pipeline at the shared
-    # engine bar (~1e-6 rel at this contraction scale)
-    assert np.max(np.abs(got - want)) / scale < 1e-5
-    ref = fft_conv_full_f64(data, kerns[0])
-    assert rel_err(got[0], ref) < 1e-5
-    # sliver='xla' registrations select the v5x variant for that key only
-    from cuda_fft_convolution_tpu.ops.block_conv import (
-        _RADIX_W_XSLIVER,
-        radix_w_xsliver,
-    )
-
-    assert not radix_w_xsliver(256, 512, 129)
-    register_radix_w_plan(256, 1024, 257, sliver="xla")
-    try:
-        assert radix_w_xsliver(256, 1024, 257)
-        assert radix_w_enabled(256, 1024, 65, 257)
-        assert not radix_w_xsliver(256, 1024, 257, head="peaks")
-        # re-registering with the default sliver clears the variant
-        register_radix_w_plan(256, 1024, 257)
-        assert not radix_w_xsliver(256, 1024, 257)
-    finally:
-        _RADIX_W_TABLE.discard((256, 1024, 257, 4, 1))
-        _RADIX_W_XSLIVER.pop((256, 1024, 257, 4, 1), None)
-    # ...and the opt-out works against a BUILTIN v5x plan too: the shipped
-    # bf16 headline plan re-registered with sliver='kernel' must actually
-    # flip back to the in-kernel variant (a set-union lookup could not)
-    assert radix_w_xsliver(256, 512, 129, spec_bytes=2)
-    register_radix_w_plan(256, 512, 129, spec_bytes=2)
-    try:
-        assert not radix_w_xsliver(256, 512, 129, spec_bytes=2)
-        register_radix_w_plan(256, 512, 129, spec_bytes=2, sliver="xla")
-        assert radix_w_xsliver(256, 512, 129, spec_bytes=2)
-    finally:
-        _RADIX_W_TABLE.discard((256, 512, 129, 2, 1))
-        _RADIX_W_XSLIVER.pop((256, 512, 129, 2, 1), None)
-    assert radix_w_xsliver(256, 512, 129, spec_bytes=2)  # builtin restored
-    # end-to-end through production dispatch with the headline plan
-    # flipped to v5x (same outputs as the v5/unfused paths)
-    register_radix_w_plan(256, 512, 129, sliver="xla")
-    try:
-        fc.set_config(use_fused_block_conv=True, fused_precision="highest")
-        got_x = np.array(fc.conv_spectral(sd, kerns, mode="full"))
-    finally:
-        fc.set_config(use_fused_block_conv=None, fused_precision="bf16x3")
-        register_radix_w_plan(256, 512, 129)  # restore builtin variant
-        _RADIX_W_TABLE.discard((256, 512, 129, 4, 1))
-    assert np.max(np.abs(got_x - want)) / scale < 1e-5
